@@ -7,26 +7,52 @@ Phases, in order; any failure exits non-zero:
 
 1. device: requires a CUDA card and prints the
    ``nvidia-smi --query-gpu=name,power.limit`` line.
-2. build: compiles the port's CUDA kernel from ``src/repro_torch/kernels/
-   csrc/flash_decode.cu`` and prints the time.
-3. kernel: ``flash_decode`` against its plain PyTorch version on the card
-   at gemma3-1b shapes (B in {1, 4, 8}, KV=1, G=4, Dh=256, T in {16, 128,
-   1024, 2048}, window on and off, softcap 0 and 50, split counts 1, 3, 7
-   and the heuristic's), f32 within 1e-5 and bf16 within 2e-2 abs, and
-   the 2-byte dtypes within half an ulp (+1e-5) of the plain version in
-   f32 on the same inputs; then
-   the kernel, plain and library (``scaled_dot_product_attention``) times
-   over one pass of 26 layers at the serving shape.
-4. serve f32: gemma3-1b at full width and depth in f32, random weights
+2. build: compiles every kernel source under ``src/repro_torch/kernels/
+   csrc/`` (``flash_decode``, ``flash_attn_fwd``, ``flash_attn_bwd``,
+   ``adam_adapt``), one nvcc per source, all at once; prints each build's
+   seconds and the ``-Xptxas -v`` register, spill and shared-memory lines.
+3. decode kernel: ``flash_decode`` against its plain PyTorch version on
+   the card at gemma3-1b shapes (B in {1, 4, 8}, KV=1, G=4, Dh=256, T in
+   {16, 128, 1024, 2048}, window on and off, softcap 0 and 50, split
+   counts 1, 3, 7 and the heuristic's), f32 within 1e-5 and bf16 within
+   2e-2 abs, and the 2-byte dtypes within half an ulp (+1e-5) of the plain
+   version in f32 on the same inputs; then the kernel, plain and library
+   (``scaled_dot_product_attention``) times over one pass of 26 layers at
+   the serving shape.
+4. training kernels: the flash-attention forward and its dq and dk/dv
+   backward kernels through autograd, at bert-base's shape and at a
+   gemma-like one (G 4, KV 1, Dh 256, window, softcap, causal, ragged S
+   and T), f32 (1e-5 forward, 5e-5 + 1e-4 relative gradients) and bf16
+   (2e-2 + 2e-2 relative), the bf16 results also within half an ulp (plus
+   the f32 tolerance) of the plain version in f32 on the same inputs;
+   ``adam_adapt`` at the embedding's 23,440,896 elements, the stacked MLP
+   weights' 28,311,552 and a ragged size (rtol 1e-5, sum of squares 1e-4);
+   then each kernel's time per bert-base layer (B 48, S 128, bf16) and at
+   23.4 M elements beside its plain version's, the library call's and the
+   bound.
+5. serve f32: gemma3-1b at full width and depth in f32, random weights
    from a seed, 8 requests of 300-900 prompt tokens through the
    continuous-batching executor; every status ``ok`` and the tokens equal
    to the serial ``greedy_generate``, request by request.
-5. serve bf16: the config's own dtype, 16 requests of 256-960 tokens;
+6. serve bf16: the config's own dtype, 16 requests of 256-960 tokens;
    qps, TTFT/TPOT, memory, and ``flash_decode`` launches = 26 x decode
    steps; a ``torch.profiler`` trace of one decode step goes to DIR.
+7. train f32: bert-base at full width and depth in f32, three SAMA meta
+   steps, each from one state through the kernels and again with every
+   kernel forced to its plain version (``dispatch.plain_everywhere``, a
+   context the model never enters), base Adam eps 1e-3 (see
+   ``phase_train_f32``): losses within 1e-5, eps and hypergrad_norm within
+   2e-3 relative, theta and lam per leaf within 1e-6 + 5% of the step's
+   largest update (the tolerances of tests/test_torch_sama.py, where the
+   port is held against JAX); one step at the paper's eps 1e-8 reported.
+8. train bf16: bert-base in its own dtype, batch 48, seq 128, unroll 2, 10
+   meta steps through ``MetaLearner.fit`` on WRENCH-analog data: step wall
+   time, samples/s, peak memory, each kernel's launches against L(K+3) +
+   L(K+1) forwards, L(K+1) dq and dk/dv and one adam_adapt per theta leaf
+   per step, and a profiled step's device time by phase and by kernel.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. The weights are random; nothing is downloaded.
+line. The weights and data are random, from seeds; nothing is downloaded.
 """
 
 import argparse
@@ -105,18 +131,24 @@ def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    path, nvcc_out = build.build()
+    results = build.build_all()
     secs = time.perf_counter() - t0
-    log(f"build: flash_decode -> {os.path.relpath(path, HERE)}")
-    for line in nvcc_out.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
-    log(f"build_seconds: {secs:.2f}")
-    return secs
+    per = {}
+    for name, path, nvcc_out, done in results:
+        per[name] = done
+        log(f"build: {name} -> {os.path.relpath(path, HERE)} ({done:.2f}s)")
+        kernel = ""
+        for line in nvcc_out.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1][:90] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas: {kernel}: {line.strip()}")
+    log(f"build_seconds: {secs:.2f} (all sources at once)")
+    return per
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernel vs plain
+# phase 3: the decode kernel
 # ---------------------------------------------------------------------------
 
 
@@ -287,7 +319,7 @@ def phase_kernel_time(dev, cfg, slots, t):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: serving
+# phases 5-6: serving
 # ---------------------------------------------------------------------------
 
 
@@ -418,26 +450,528 @@ def profile_step(model, params, scfg, prompts, out_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the training kernels
+# ---------------------------------------------------------------------------
+
+#: (name, B, S, T, KV, G, Dh, causal, window, softcap): bert-base's layer
+#: and a gemma-like training shape with ragged S and T
+TRAIN_SHAPES = [
+    ("bert-base", 48, 128, 128, 12, 1, 64, False, 0, 0.0),
+    ("gemma-like", 2, 300, 333, 1, 4, 256, True, 128, 50.0),
+]
+#: (atol, rtol) per dtype: forward, gradients (tests/test_flash_attention.py)
+ATTN_TOL = {torch.float32: ((1e-5, 0.0), (5e-5, 1e-4)),
+            torch.bfloat16: ((2e-2, 2e-2), (2e-2, 2e-2))}
+ADAM_SIZES = (23_440_896, 28_311_552, 1_000_003)  # embed, stacked MLP leaf, ragged
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+
+def _attn_inputs(rng, dev, dtype, b, s, t, kv, g, dh):
+    q, cot = (_randn(rng, (b, s, kv * g, dh), dtype, dev) for _ in range(2))
+    k, v = (_randn(rng, (b, t, kv, dh), dtype, dev) for _ in range(2))
+    q_pos = (torch.arange(s, device=dev, dtype=torch.int32) + (t - s))[None].expand(b, s)
+    return q, k, v, cot, q_pos.contiguous(), torch.arange(t, device=dev, dtype=torch.int32)
+
+
+def _excess(got, ref, atol, rtol):
+    """Worst |got - ref| over its allowance atol + rtol |ref| (fails above 1)."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs() / (atol + rtol * ref.abs())).max().item()
+
+
+def phase_train_kernel_check(dev):
+    from repro_torch.kernels import adam_adapt, dispatch, flash_attn
+
+    rng = np.random.default_rng(SEED + 10)
+    names = (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV)
+    worst = {n: {torch.float32: 0.0, torch.bfloat16: 0.0} for n in names}
+    share_vs_f32 = {n: 0.0 for n in names}
+    for name, b, s, t, kv, g, dh, causal, window, softcap in TRAIN_SHAPES:
+        kw = dict(softcap=softcap, window=window, causal=causal)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, cot, q_pos, kv_pos = _attn_inputs(rng, dev, dtype, b, s, t, kv, g, dh)
+
+            def run(backend):
+                leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                out = flash_attn.flash_attention(*leaves, q_pos, kv_pos, True, backend=backend,
+                                                 **kw)
+                (out.float() * cot.float()).sum().backward()
+                return [out.detach()] + [x.grad for x in leaves]
+
+            got, plain = run(None), run("plain")
+            torch.cuda.synchronize()
+            for i, (a, p) in enumerate(zip(got, plain)):
+                kname = names[min(i, 2)]
+                atol, rtol = ATTN_TOL[dtype][0 if i == 0 else 1]
+                if a.dtype != dtype or a.shape != p.shape:
+                    raise AssertionError(f"{kname}: {a.dtype} {tuple(a.shape)} at {name}")
+                excess = _excess(a, p, atol, rtol)
+                if not excess <= 1.0:
+                    raise AssertionError(f"{kname} vs plain at {name} {dtype}: {excess:.3f} of "
+                                         f"the tolerance (atol {atol}, rtol {rtol})")
+                worst[kname][dtype] = max(worst[kname][dtype],
+                                          (a.float() - p.float()).abs().max().item())
+            if dtype == torch.bfloat16:
+                # the bf16 kernels against the plain version in f32 on the
+                # same inputs: each result rounded once from f32
+                out, lse = flash_attn._fwd_cuda(q, k, v, q_pos, kv_pos, **kw)
+                delta = torch.sum(cot.float() * out.float(), dim=-1)
+                grads = flash_attn._bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, cot, **kw)
+                ref_out, _ = flash_attn.flash_attention_fwd_plain(
+                    q.float(), k.float(), v.float(), q_pos, kv_pos, **kw)
+                ref_grads = flash_attn.flash_attention_bwd_plain(
+                    q.float(), k.float(), v.float(), q_pos, kv_pos, lse, delta, cot.float(),
+                    **kw)
+                half_ulp = torch.finfo(torch.bfloat16).eps / 2
+                for i, (a, r) in enumerate(zip([out, *grads], [ref_out, *ref_grads])):
+                    kname = names[min(i, 2)]
+                    atol, rtol = ATTN_TOL[torch.float32][0 if i == 0 else 1]
+                    share = _excess(a, r, atol, rtol + half_ulp)
+                    if not share <= 1.0:
+                        raise AssertionError(f"{kname} bf16 vs plain in f32 at {name}: "
+                                             f"{share:.3f} of the half-ulp bound")
+                    share_vs_f32[kname] = max(share_vs_f32[kname], share)
+    for kname in names:
+        log(f"kernel_check: {kname} vs plain, max_err_f32={worst[kname][torch.float32]:.3e} "
+            f"max_err_bf16={worst[kname][torch.bfloat16]:.3e}; bf16 vs plain in f32 within "
+            f"{share_vs_f32[kname]:.3f} of the half-ulp bound")
+
+    adam_worst = 0.0
+    for n in ADAM_SIZES:
+        for t in (1, 7):
+            g, gm, m = (_randn(rng, (n,), torch.float32, dev) * 1e-2 for _ in range(3))
+            v = _randn(rng, (n,), torch.float32, dev).square() * 1e-4
+            step = torch.tensor(t, dtype=torch.int32, device=dev)
+            lr = torch.tensor(1e-3, device=dev)
+            out, ss = adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr)
+            ref, ref_ss = adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr, backend="plain")
+            excess = _excess(out, ref, 1e-7, 1e-5)
+            ss_rel = abs(ss.item() - ref_ss.item()) / abs(ref_ss.item())
+            if not (excess <= 1.0 and ss_rel <= 1e-4):
+                raise AssertionError(f"adam_adapt vs plain at N={n} t={t}: out {excess:.3f} of "
+                                     f"the tolerance, sum of squares {ss_rel:.2e} relative")
+            adam_worst = max(adam_worst, (out - ref).abs().max().item())
+            del g, gm, m, v, out, ref
+    log(f"kernel_check: adam_adapt vs plain at N in {ADAM_SIZES}, t in (1, 7): "
+        f"max_abs_err={adam_worst:.3e} (rtol 1e-5, atol 1e-7; sum of squares rtol 1e-4)")
+    dispatch.reset_launches()
+    return worst, share_vs_f32, adam_worst
+
+
+def _bound(nbytes, ops, dtype):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def phase_train_kernel_time(dev, cfg, batch, seq):
+    """Per bert-base layer (one pass over cfg.num_layers layers' own inputs,
+    so the 50 MB L2 does not hold them), bf16: the forward, dq and dk/dv
+    kernels beside the plain versions and scaled_dot_product_attention;
+    and adam_adapt at the embedding's size."""
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import adam_adapt, flash_attn
+
+    rng = np.random.default_rng(SEED + 11)
+    dtype = torch.bfloat16
+    b, s, h, dh = batch, seq, cfg.num_heads, cfg.head_dim
+    kv, g, n = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.num_layers
+    kw = dict(softcap=0.0, window=0, causal=False)
+    layers = []
+    for _ in range(n):
+        q, k, v, cot, q_pos, kv_pos = _attn_inputs(rng, dev, dtype, b, s, s, kv, g, dh)
+        out, lse = flash_attn._fwd_cuda(q, k, v, q_pos, kv_pos, **kw)
+        delta = torch.sum(cot.float() * out.float(), dim=-1)
+        layers.append(dict(q=q, k=k, v=v, cot=cot, q_pos=q_pos, kv_pos=kv_pos, lse=lse,
+                           delta=delta, dq=torch.empty_like(q), dk=torch.empty_like(k),
+                           dv=torch.empty_like(v)))
+    dq_fn = flash_attn._train_fn("flash_attn_bwd", "flash_attn_dq_launch")
+    dkv_fn = flash_attn._train_fn("flash_attn_bwd", "flash_attn_dkv_launch")
+
+    def c_args(x):
+        return (x["q"].data_ptr(), x["k"].data_ptr(), x["v"].data_ptr(), x["cot"].data_ptr(),
+                x["q_pos"].data_ptr(), x["kv_pos"].data_ptr(), x["lse"].data_ptr(),
+                x["delta"].data_ptr())
+
+    def common():  # the stream is read at each call: under capture it is the graph's
+        return (b, s, s, kv, g, dh, 0, 0, 0.0, 1.0 / math.sqrt(dh), 1,
+                torch.cuda.current_stream(dev).cuda_stream)
+
+    def checked(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+    def run_fwd():
+        for x in layers:
+            flash_attn._fwd_cuda(x["q"], x["k"], x["v"], x["q_pos"], x["kv_pos"], **kw)
+
+    def run_dq():
+        for x in layers:
+            checked(dq_fn(*c_args(x), x["dq"].data_ptr(), *common()), "dq")
+
+    def run_dkv():
+        for x in layers:
+            checked(dkv_fn(*c_args(x), x["dk"].data_ptr(), x["dv"].data_ptr(), *common()), "dkv")
+
+    def run_plain_fwd():
+        for x in layers:
+            flash_attn.flash_attention_fwd_plain(x["q"], x["k"], x["v"], x["q_pos"],
+                                                 x["kv_pos"], **kw)
+
+    def run_plain_bwd():
+        for x in layers:
+            flash_attn.flash_attention_bwd_plain(x["q"], x["k"], x["v"], x["q_pos"],
+                                                 x["kv_pos"], x["lse"], x["delta"], x["cot"],
+                                                 **kw)
+
+    lib = []
+    for x in layers:
+        qt, kt, vt = (x[name].transpose(1, 2).contiguous().requires_grad_(True)
+                      for name in ("q", "k", "v"))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        lib.append((qt, kt, vt, out, x["cot"].transpose(1, 2).contiguous()))
+
+    def run_lib_fwd():
+        with torch.no_grad():
+            for qt, kt, vt, _, _ in lib:
+                F.scaled_dot_product_attention(qt, kt, vt)
+
+    def run_lib_bwd():
+        for qt, kt, vt, out, ct in lib:
+            torch.autograd.grad(out, (qt, kt, vt), ct, retain_graph=True)
+
+    t = {key: graph_ms(fn) / n for key, fn in (
+        ("fwd", run_fwd), ("dq", run_dq), ("dkv", run_dkv), ("plain_fwd", run_plain_fwd),
+        ("plain_bwd", run_plain_bwd), ("lib_fwd", run_lib_fwd), ("fwd_repeat", run_fwd))}
+    # autograd's backward does not capture into a CUDA graph here (it runs on
+    # the engine's own thread), so the library backward is timed eagerly, by
+    # CUDA events: its host cost (a few us per layer) stays in its time
+    t["lib_bwd"] = time_ms(run_lib_bwd) / n
+    item = 2
+    act = b * s * h * dh * item           # q, out, dO, dq: (B, S, H, Dh)
+    kvb = b * s * kv * dh * item          # k, v, dk, dv: (B, T, KV, Dh)
+    rows = b * s * h * 4                  # lse or delta, f32
+    pos = b * s * 4 + s * 4
+    pairs = b * h * s * s                 # every (query, key) pair is valid (non-causal)
+    bounds = {
+        "fwd": _bound(act * 2 + kvb * 2 + rows + pos, 4 * pairs * dh, dtype),
+        "dq": _bound(act * 3 + kvb * 2 + rows * 2 + pos, 6 * pairs * dh, dtype),
+        "dkv": _bound(act * 2 + kvb * 4 + rows * 2 + pos, 8 * pairs * dh, dtype),
+    }
+    shape = {"B": b, "S": s, "T": s, "H": h, "KV": kv, "Dh": dh, "dtype": "bfloat16",
+             "causal": False, "layers": n}
+    out = {
+        flash_attn.FWD: {"ms": t["fwd"], "ms_repeat": t["fwd_repeat"], "plain_ms": t["plain_fwd"],
+                         "library_ms": t["lib_fwd"], "shape": shape},
+        flash_attn.DQ: {"ms": t["dq"], "plain_ms": t["plain_bwd"], "library_ms": t["lib_bwd"],
+                        "shape": shape},
+        flash_attn.DKV: {"ms": t["dkv"], "plain_ms": t["plain_bwd"], "library_ms": t["lib_bwd"],
+                         "shape": shape},
+    }
+    for key, name in (("fwd", flash_attn.FWD), ("dq", flash_attn.DQ), ("dkv", flash_attn.DKV)):
+        out[name]["bound_ms"], out[name]["bound_by"] = bounds[key]
+    # the plain backward and the library backward each compute dq, dk and
+    # dv together: their time stands beside both backward kernels
+    out[flash_attn.DQ]["plain_and_library_cover"] = "dq, dk, dv"
+    out[flash_attn.DKV]["plain_and_library_cover"] = "dq, dk, dv"
+    for name in (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV):
+        e = out[name]
+        log(f"kernel_time: {name} per bert-base layer (B={b} S={s} bf16): ms={e['ms']:.4f} "
+            f"plain_ms={e['plain_ms']:.4f} library_ms={e['library_ms']:.4f} "
+            f"bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
+    del layers, lib
+
+    n_el = ADAM_SIZES[0]
+    g, m, v, gm = (_randn(rng, (n_el,), torch.float32, dev) for _ in range(4))
+    v = v.abs()
+    step = torch.tensor(3, dtype=torch.int32, device=dev)
+    lr = torch.tensor(1e-3, device=dev)
+    adam_ms = graph_ms(lambda: adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr))
+    adam_plain = graph_ms(lambda: adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr,
+                                                        backend="plain"))
+    adam_ms_2 = graph_ms(lambda: adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr))
+    bound_ms, bound_by = _bound(20 * n_el, 20 * n_el, torch.float32)
+    out["adam_adapt"] = {"ms": adam_ms, "ms_repeat": adam_ms_2, "plain_ms": adam_plain,
+                         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "shape": {"N": n_el, "dtype": "float32"}}
+    log(f"kernel_time: adam_adapt at N={n_el}: ms={adam_ms:.4f} (repeat {adam_ms_2:.4f}) "
+        f"plain_ms={adam_plain:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: training
+# ---------------------------------------------------------------------------
+
+
+def _wrench(cfg, seq, n_train, n_meta, seed):
+    """WRENCH-analog data at the model's vocabulary (benchmarks/common.py
+    wrench_task): majority-vote weak labels on train, clean meta labels."""
+    from repro_torch import data
+
+    ccfg = data.ClassificationConfig(num_classes=cfg.num_labels, vocab_size=cfg.vocab_size,
+                                     seq_len=seq, seed=seed)
+    train = data.make_classification_dataset(ccfg, n_train, seed=seed)
+    train["y"] = data.weak_labels(train["y_true"], cfg.num_labels, num_lfs=5, lf_accuracy=0.5,
+                                  seed=seed + 1)
+    meta = data.make_classification_dataset(ccfg, n_meta, seed=seed + 2)
+    return train, meta
+
+
+def _warm_batches(train, dev, batch, unroll, seed):
+    """(base_batches, meta_batch) for comparing hypergradients: the K base
+    batches are row permutations of one set of sequences (noisy labels)
+    and the meta batch is the same sequences with their clean labels, so
+    every parameter row the meta gradient touches has warm Adam moments at
+    the state the adaptation is taken at. On a row first seen in the last
+    base batch the exact Adam diagonal is lr a eps / (sqrt(b) |g| + eps)^2,
+    ~1/g^2: v and eps then follow the smallest such gradients, whose
+    rounding differs between any two implementations (ROADMAP queue 3)."""
+    rng = np.random.default_rng(seed)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def batches(i):
+        idx = rng.integers(0, len(train["y"]), size=batch)
+        perms = np.stack([idx[rng.permutation(batch)] for _ in range(unroll)])
+        base = {"tokens": put(train["tokens"][perms]), "y": put(train["y"][perms])}
+        meta = {"tokens": put(train["tokens"][idx]), "y": put(train["y_true"][idx])}
+        return base, meta
+
+    return batches
+
+
+def _learner(model, dev, unroll, base_eps=1e-8):
+    from repro_torch import api, optim
+    from repro_torch.core import problems
+
+    spec = problems.make_data_optimization_spec(model.classifier_per_example, reweight=True)
+    learner = api.MetaLearner(spec, base_opt=optim.adam(1e-3, eps=base_eps), meta_opt="adam",
+                              meta_lr=1e-3, method="sama", unroll_steps=unroll)
+    learner.init(model.init(SEED), problems.init_data_optimization_lam(SEED + 1, device=dev))
+    return learner
+
+
+F32_TOL = {"base_loss": 1e-5, "meta_loss": 1e-5, "eps": 2e-3, "hypergrad_norm": 2e-3}
+
+
+def _step_pair(learner, state, base, meta):
+    """One meta step from ``state`` through the kernels and with every
+    kernel plain. Returns the plain state and, per metric, (kernels,
+    plain, relative difference); per theta/lam leaf set, the largest
+    difference and its share of 1e-6 + 5% of the largest update."""
+    from repro_torch import tree
+    from repro_torch.core.engine import packed_read
+    from repro_torch.kernels import dispatch
+
+    t0 = time.perf_counter()
+    got_s, got = learner.step_fn(state, base, meta)
+    got = packed_read(got)
+    t1 = time.perf_counter()
+    with dispatch.plain_everywhere():
+        ref_s, ref = learner.step_fn(state, base, meta)
+        ref = packed_read(ref)
+    t2 = time.perf_counter()
+    diff = {k: (got[k], ref[k], abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30)) for k in F32_TOL}
+    for field in ("theta", "lam"):
+        d_max, share = 0.0, 0.0
+        for x, y, y0 in zip(*(tree.tree_leaves(getattr(st, field))
+                              for st in (got_s, ref_s, state))):
+            d = (x - y).abs().max().item()
+            d_max = max(d_max, d)
+            share = max(share, d / (1e-6 + 0.05 * (y - y0).abs().max().item()))
+        diff[f"{field}_max_abs_diff"], diff[f"{field}_share_of_bound"] = d_max, share
+    return ref_s, diff, (t1 - t0, t2 - t1)
+
+
+def phase_train_f32(base_cfg, dev, batch=16, seq=128, unroll=2, steps=3):
+    """Each meta step from one state twice, through the kernels and with
+    every kernel plain; the run goes on from the plain step's state (run
+    freely, two f32 trajectories part within a few meta steps: ROADMAP
+    queue 3). Held within F32_TOL and the update bound.
+
+    The checked run's base Adam takes eps = 1e-3, which bounds the
+    adaptation diagonal by lr / eps. With the paper's 1e-8, the coordinates
+    whose gradient is at rounding level (diagonal ~1e5) make up v, so eps,
+    the hypergradient and the nudged theta follow rounding in any two
+    implementations; one more step at 1e-8 is measured and reported here,
+    not held to a tolerance."""
+    from repro_torch.models import Model
+
+    cfg = base_cfg.replace(dtype="float32")
+    model = Model(cfg, device=dev)
+    train, _ = _wrench(cfg, seq, 256, 16, SEED + 20)
+    batches = _warm_batches(train, dev, batch, unroll, SEED + 21)
+    learner = _learner(model, dev, unroll, base_eps=1e-3)
+    state, rows, secs = learner.state, [], [0.0, 0.0]
+    for i in range(steps):
+        state, diff, (tk, tp) = _step_pair(learner, state, *batches(i))
+        secs[0] += tk
+        secs[1] += tp
+        rows.append(diff)
+        for key, rtol in F32_TOL.items():
+            got, ref, _ = diff[key]
+            if not abs(got - ref) <= rtol * abs(ref) + 1e-7:
+                raise AssertionError(f"train f32 step {i} {key}: kernels {got!r} vs plain {ref!r}")
+        for field in ("theta", "lam"):
+            if not diff[f"{field}_share_of_bound"] <= 1.0:
+                raise AssertionError(f"train f32 step {i} {field}: {diff[f'{field}_max_abs_diff']:.3e}"
+                                     f" is {diff[f'{field}_share_of_bound']:.2f} of the bound")
+    learner_8 = _learner(model, dev, unroll)
+    _, diff_8, _ = _step_pair(learner_8, learner_8.state, *batches(0))
+    out = {"steps": steps, "batch": batch, "seq": seq, "unroll": unroll, "base_adam_eps": 1e-3,
+           "kernels_s": secs[0], "plain_s": secs[1], "per_step": rows,
+           "worst": {k: max(r[k][2] if isinstance(r[k], tuple) else r[k] for r in rows)
+                     for k in rows[0]},
+           "base_adam_eps_1e-8_one_step_not_held": diff_8}
+    log("train_f32: " + json.dumps(out))
+    return out
+
+
+PHASES = ("base_unroll", "local_terms", "meta_pass", "cd_passes", "finalize", "meta_update")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _device_time_by_phase(trace_path):
+    """Device time of a profiled step from its chrome trace: each kernel,
+    copy or fill is charged to the innermost engine phase (a
+    record_function range on the host) that holds the host call that
+    launched it, matched by the trace's correlation ids. Returns (ms by
+    phase, [(kernel name, (us, count))] by time, total device ms)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") in PHASES]
+    by_phase = {name: 0.0 for name in PHASES + ("outside the phases",)}
+    by_kernel = {}
+    total = 0.0
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        total += e["dur"]
+        us, count = by_kernel.get(e["name"], (0.0, 0))
+        by_kernel[e["name"]] = (us + e["dur"], count + 1)
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        inner = [r for r in ranges if ts is not None and r[0] <= ts <= r[1]]
+        name = min(inner, key=lambda r: r[1] - r[0])[2] if inner else "outside the phases"
+        by_phase[name] += e["dur"]
+    kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    return {k: v / 1e3 for k, v in by_phase.items()}, kernels, total / 1e3
+
+
+def phase_train_bf16(cfg, dev, out_dir, batch=48, seq=128, unroll=2, steps=10):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import data, tree
+    from repro_torch.core.engine import packed_read
+    from repro_torch.kernels import dispatch, flash_attn
+    from repro_torch.models import Model
+
+    model = Model(cfg, device=dev)
+    train, meta = _wrench(cfg, seq, 1024, 256, SEED + 30)
+    learner = _learner(model, dev, unroll)
+    it = data.BatchIterator(train, meta, batch_size=batch, meta_batch_size=batch,
+                            unroll=unroll, seed=SEED + 31, device=dev)
+    packed_read(learner.step(*next(it)))  # warm: cuBLAS handles, kernel libraries
+    stamps = []
+
+    def timed():
+        while True:
+            stamps.append(time.perf_counter())
+            yield next(it)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()  # counts of the main path's run only
+    history = learner.fit(timed(), steps=steps, log_every=1)
+    stamps.append(time.perf_counter())  # fit reads every step's metrics: a sync each
+    launches = {n: dispatch.launches(n) for n in (flash_attn.FWD, flash_attn.DQ,
+                                                  flash_attn.DKV, "adam_adapt")}
+    peak = torch.cuda.max_memory_allocated()
+    walls = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    L, K = cfg.num_layers, unroll
+    leaves = len(tree.tree_leaves(learner.state.theta))
+    want = {flash_attn.FWD: steps * (L * (K + 3) + L * (K + 1)),
+            flash_attn.DQ: steps * L * (K + 1), flash_attn.DKV: steps * L * (K + 1),
+            "adam_adapt": steps * leaves}
+    if launches != want:
+        raise AssertionError(f"train bf16 launches {launches} != {want}")
+    for row in history:
+        if not all(math.isfinite(row[k]) for k in ("base_loss", "meta_loss", "hypergrad_norm")):
+            raise AssertionError(f"train bf16: non-finite metrics {row}")
+    step_ms = float(np.median(walls))
+    result = {"batch": batch, "seq": seq, "unroll": unroll, "steps": steps,
+              "step_ms_median": step_ms, "step_ms_min": min(walls), "step_ms_max": max(walls),
+              "step_ms_all": walls, "samples_per_s": batch * unroll / step_ms * 1e3,
+              "max_memory_allocated": peak, "launches": launches,
+              "launches_formula": {"flash_attention_fwd": "steps*(L*(K+3)+L*(K+1))",
+                                   "flash_attention_dq": "steps*L*(K+1)",
+                                   "flash_attention_dkv": "steps*L*(K+1)",
+                                   "adam_adapt": f"steps*{leaves} theta leaves"},
+              "first_and_last_metrics": [history[0], history[-1]]}
+    log("train_bf16: " + json.dumps(result))
+
+    # one more step under the profiler (its launches are outside the count)
+    base_b, meta_b = next(it)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        packed_read(learner.step(base_b, meta_b))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, "train_step_trace.json")
+    prof.export_chrome_trace(trace_path)
+    phases, kernels, device_ms = _device_time_by_phase(trace_path)
+    with open(os.path.join(out_dir, "train_step_kernels.txt"), "w") as f:
+        for key, (us, count) in kernels:
+            f.write(f"{us:12.1f} us  {count:5d}x  {key}\n")
+    prof_out = {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
+                "device_busy_share": device_ms / step_ms,
+                "device_busy_share_of_profiled_step": device_ms / wall_ms,
+                "kernel_launches": sum(c for _, (_, c) in kernels),
+                "device_ms_by_phase": phases,
+                "top": [{"name": k[:80], "ms": us / 1e3, "count": c}
+                        for k, (us, c) in kernels[:15]]}
+    log("train_step_profile: " + json.dumps(prof_out))
+    result["step_profile"] = prof_out
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
-                    help="directory for the profiler trace of one decode step")
+                    help="directory for the profiler traces of a decode and a training step")
     args = ap.parse_args()
 
     phase_device()
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch import configs
+    from repro_torch.kernels import flash_attn
     from repro_torch.models import Model
     from repro_torch.models.common import tree_flatten
 
     dev = torch.device("cuda", 0)
     cfg = configs.get_config("gemma3-1b")
+    bert = configs.get_config("bert-base")
+    build_s = phase_build()
+
+    # phase 3: the decode kernel
     entry = {"name": "flash_decode", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-             "replaces": "src/repro/kernels/flash_attn.py:490"}
-    entry["build_seconds"] = phase_build()
+             "replaces": "src/repro/kernels/flash_attn.py:490",
+             "build_seconds": build_s["flash_decode"]}
     worst, worst_vs_f32 = phase_kernel_check(dev)
     timing = phase_kernel_time(dev, cfg, slots=4, t=1024)
     # "max_abs_err" and "ms" are the keys every kernels line carries; they
@@ -447,6 +981,30 @@ def main():
                   "max_err_bf16": worst[torch.bfloat16],
                   "bf16_vs_f32_share_of_bound": worst_vs_f32,
                   "kernel_ms": timing["ms"], **timing})
+
+    # phase 4: the training kernels
+    t_worst, t_share, adam_worst = phase_train_kernel_check(dev)
+    t_time = phase_train_kernel_time(dev, bert, batch=48, seq=128)
+    train_entries = []
+    for name, source, replaces in (
+            (flash_attn.FWD, "flash_attn_fwd", "src/repro/kernels/flash_attn.py:118"),
+            (flash_attn.DQ, "flash_attn_bwd", "src/repro/kernels/flash_attn.py:253"),
+            (flash_attn.DKV, "flash_attn_bwd", "src/repro/kernels/flash_attn.py:282"),
+            ("adam_adapt", "adam_adapt", "src/repro/kernels/adam_adapt.py:30")):
+        e = {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{source}.cu", "replaces": replaces,
+             "build_seconds": build_s[source]}
+        if name == "adam_adapt":
+            e["max_abs_err"] = adam_worst
+        else:
+            e.update({"max_abs_err": t_worst[name][torch.bfloat16],
+                      "max_err_f32": t_worst[name][torch.float32],
+                      "max_err_bf16": t_worst[name][torch.bfloat16],
+                      "bf16_vs_f32_share_of_bound": t_share[name]})
+        e.update(t_time[name])
+        train_entries.append(e)
+
+    # phases 5-6: serving
     t0 = time.perf_counter()
     params = Model(cfg, device=dev).init(SEED)
     torch.cuda.synchronize()
@@ -456,7 +1014,16 @@ def main():
     serve_out, launches = phase_serve_bf16(cfg, params, dev, args.out)
     entry["launches"] = launches
     entry["serve_bf16"] = serve_out
-    log(json.dumps({"kernels": [entry]}))
+    del params
+    torch.cuda.empty_cache()
+
+    # phases 7-8: training
+    phase_train_f32(bert, dev)
+    torch.cuda.empty_cache()
+    train_out = phase_train_bf16(bert, dev, args.out)
+    for e in train_entries:
+        e["launches"] = train_out["launches"][e["name"]]
+    log(json.dumps({"kernels": [entry] + train_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

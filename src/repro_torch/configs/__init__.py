@@ -6,6 +6,7 @@ import importlib
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
+    "bert-base": "bert_base",
     "gemma3-1b": "gemma3_1b",
 }
 

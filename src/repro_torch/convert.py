@@ -6,7 +6,9 @@ weights: the JAX side exports its tree as numpy
 (``jax.tree_util.tree_map(np.asarray, params)``) and the port takes it
 here. The trees have the same nested-dict structure and stacked layer
 axes on both sides, so leaves map one to one. The same functions carry
-decode caches.
+decode caches, and ``state_from_jax`` / ``state_to_numpy`` carry a whole
+training state (theta, lam, both optimizers' moments and counts, the
+step) so that both packages can start from one state.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.engine import EngineState
 from repro_torch.models import common as cm
+from repro_torch.optim import OptState
 
 Tree = Any
 
@@ -47,3 +51,46 @@ def params_to_numpy(tree: Tree) -> Tree:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return cm.tree_map(to_np, tree)
+
+
+def _opt_state_from_jax(st, device) -> OptState:
+    def conv(tree):
+        return None if tree is None else cm.tree_map(lambda a: _to_tensor(a, device), tree)
+
+    return OptState(count=_to_tensor(st.count, device), mu=conv(st.mu), nu=conv(st.nu))
+
+
+def state_from_jax(state, *, device="cuda") -> EngineState:
+    """A JAX ``EngineState`` (its leaves as numpy, ``jax.tree_util.tree_map(
+    np.asarray, state)``) as the port's, on ``device``. Read by field name:
+    theta, base_opt_state and meta_opt_state (``OptState`` count, mu, nu),
+    lam, step. The JAX state's loss-scale field has no counterpart yet
+    (only the identity scale policy is ported) and must be None."""
+
+    if getattr(state, "scale", None) is not None:
+        raise ValueError("a loss-scaled JAX state has no counterpart in the port yet")
+    device = cm.resolve_device(device)
+    return EngineState(
+        theta=params_from_jax(state.theta, device=device),
+        base_opt_state=_opt_state_from_jax(state.base_opt_state, device),
+        lam=params_from_jax(state.lam, device=device),
+        meta_opt_state=_opt_state_from_jax(state.meta_opt_state, device),
+        step=_to_tensor(state.step, device),
+    )
+
+
+def state_to_numpy(state: EngineState) -> EngineState:
+    """The inverse: the port's EngineState with numpy leaves (field names
+    as JAX's, so ``repro.core.EngineState(**state._asdict())`` rebuilds
+    the JAX state)."""
+
+    def opt(st: OptState) -> OptState:
+        return OptState(count=params_to_numpy(st.count),
+                        mu=None if st.mu is None else params_to_numpy(st.mu),
+                        nu=None if st.nu is None else params_to_numpy(st.nu))
+
+    return EngineState(theta=params_to_numpy(state.theta),
+                       base_opt_state=opt(state.base_opt_state),
+                       lam=params_to_numpy(state.lam),
+                       meta_opt_state=opt(state.meta_opt_state),
+                       step=params_to_numpy(state.step))

@@ -1,5 +1,6 @@
-"""GQA self-attention over an explicit KV cache: the decode half of
-``src/repro/models/attention.py``.
+"""GQA self-attention, after ``src/repro/models/attention.py``: the
+training branch (no cache, through the ``flash_attention`` kernel) and the
+decode branch over an explicit KV cache.
 
 Layout conventions (the JAX package's):
   activations x: (B, S, D)
@@ -9,8 +10,7 @@ Layout conventions (the JAX package's):
 ``local_flag`` is a Python bool per layer (the port walks the layers in a
 Python loop where JAX scans them with a traced flag).
 
-The no-cache training branch (``flash_attention``), MLA and
-cross-attention come with the training and model-family slices.
+MLA and cross-attention come with the model-family slices.
 """
 
 from __future__ import annotations
@@ -38,12 +38,58 @@ def make_mask(q_pos, kv_pos, *, causal=True, local_flag=None, window=0):
     return mask[:, None]  # (B,1,S,T)
 
 
-def _sdpa(q, k, v, mask, *, softcap=0.0):
+def _chunked_sdpa(q, k, v, q_pos, kv_pos, *, chunk, softcap=0.0, local_flag=None,
+                  window=0, causal=True):
+    """Blockwise online-softmax attention over KV chunks of ``chunk`` rows
+    (the JAX package's flash-style scan, a Python loop here). q is
+    (B, S, KV, G, Dh). Padded rows of a ragged last chunk carry position
+    -1 and are masked. Returns (out (B, S, H, Dh), lse (B, KV, G, S) f32,
+    NEG for a fully masked row); the JAX function returns ``out`` only."""
+
+    B, S, KV, G, Dh = q.shape
+    T = k.shape[1]
+    nc = -(-T // chunk)
+    if nc * chunk != T:
+        pad = nc * chunk - T
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
+    # 1 / sqrt(Dh), both steps rounded to q's dtype as jnp does them
+    scale = cm.round_to(1.0 / cm.round_to(math.sqrt(Dh), q.dtype), q.dtype)
+    NEG = -1e30
+    m = torch.full((B, KV, G, S), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, KV, G, Dh), dtype=q.dtype, device=q.device)
+    for c in range(nc):
+        kc, vc = k[:, c * chunk:(c + 1) * chunk], v[:, c * chunk:(c + 1) * chunk]
+        pc = kv_pos[c * chunk:(c + 1) * chunk]
+        s = torch.einsum("bskgd,btkd->bkgst", q, kc) * scale
+        s = cm.softcap(s.float(), softcap)
+        mask = make_mask(q_pos, pc, causal=causal, local_flag=local_flag, window=window)
+        mask = mask & (pc >= 0)[None, None, None, :]
+        mask_b = torch.broadcast_to(mask[:, :, None], s.shape)
+        s = torch.where(mask_b, s, NEG)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.where(mask_b, torch.exp(s - m_new[..., None]), 0.0)
+        scale_old = torch.exp(torch.clamp_max(m - m_new, 0.0))
+        scale_old = torch.where(m <= NEG, 0.0, scale_old)
+        l = l * scale_old + torch.sum(p, dim=-1)
+        pv = torch.einsum("bkgst,btkd->bskgd", p.to(q.dtype), vc)
+        acc = acc * torch.movedim(scale_old, -1, 1)[..., None].to(q.dtype) + pv
+        m = m_new
+    denom = torch.movedim(torch.clamp_min(l, 1e-30), -1, 1)[..., None]
+    out = (acc / denom.to(q.dtype)).reshape(B, S, KV * G, Dh)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), NEG)
+    return out, lse
+
+
+def _sdpa(q, k, v, mask, *, softcap=0.0, return_lse=False):
     """Grouped scaled-dot-product attention.
     q: (B,S,H,Dh), k/v: (B,T,KV,Dh); H = KV * G.
 
     The scores are formed and divided by sqrt(Dh) in q's dtype; softcap and
-    softmax run in f32; the probabilities go back to q's dtype for PV."""
+    softmax run in f32; the probabilities go back to q's dtype for PV. With
+    ``return_lse`` also returns the scores' log-sum-exp (B, KV, G, S) f32."""
 
     B, S, H, Dh = q.shape
     KV = k.shape[2]
@@ -54,8 +100,10 @@ def _sdpa(q, k, v, mask, *, softcap=0.0):
     if mask is not None:
         scores = torch.where(mask[:, :, None], scores, -1e30)  # (B,1,S,T)->(B,1,1,S,T)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
-    return out.reshape(B, S, H, Dh)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H, Dh)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1)
+    return out
 
 
 def init_self_attn(cfg, gen, *, dtype=torch.float32, device, lead: Tuple[int, ...] = ()):
@@ -79,18 +127,21 @@ def self_attention(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
-    cache: Dict[str, torch.Tensor],
-    cache_pos,
     local_flag: Optional[bool] = None,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Insert the S new k/v rows at ``cache_pos`` and attend over the cache.
+    causal: bool = True,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos=None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Without a cache (training, the encoder): attention over the S new
+    rows through the ``flash_attention`` kernel; returns (out, None).
 
-    ``cache_pos`` is a scalar start (a uniform batch: a contiguous slice)
-    or a (B,) tensor of per-lane starts (continuous batching over staggered
-    lengths: a scatter). The rows are written into ``cache`` in place, and
-    ``cache`` is returned as the new cache. S == 1 goes to the split-KV
-    ``flash_decode`` kernel, S > 1 (block prefill) to ``_sdpa``.
-    ``positions`` is (B, S) int32."""
+    With a cache: insert the S new k/v rows at ``cache_pos`` and attend
+    over the cache. ``cache_pos`` is a scalar start (a uniform batch: a
+    contiguous slice) or a (B,) tensor of per-lane starts (continuous
+    batching over staggered lengths: a scatter). The rows are written into
+    ``cache`` in place, and ``cache`` is returned as the new cache. S == 1
+    goes to the split-KV ``flash_decode`` kernel, S > 1 (block prefill) to
+    ``_sdpa``. ``positions`` is (B, S) int32."""
 
     B, S, D = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -100,6 +151,14 @@ def self_attention(
     if cfg.use_rope:
         q = cm.apply_rope(q, positions, cfg.rope_theta)
         k = cm.apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        kv_pos = positions[0] if positions.dim() == 2 else positions
+        q_pos = positions if positions.dim() == 2 else positions[None].expand(B, S)
+        out = flash_attn.flash_attention(
+            q, k, v, q_pos, kv_pos, local_flag, softcap=cfg.attn_logit_softcap,
+            window=cfg.sliding_window, causal=causal, chunk=cfg.attn_chunk)
+        return out.reshape(B, S, H * Dh) @ p["wo"].to(x.dtype), None
 
     ck, cv = cache["k"], cache["v"]
     T = ck.shape[1]

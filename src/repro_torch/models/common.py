@@ -1,5 +1,6 @@
-"""Shared model building blocks: norms, MLPs, RoPE, initializers, and the
-small nested-dict tree helpers the port uses in place of ``jax.tree_util``.
+"""Shared model building blocks: norms, MLPs, RoPE, initializers, device
+resolution, and (re-exported from ``repro_torch.tree``) the nested-dict
+tree helpers the port uses in place of ``jax.tree_util``.
 
 Parameters are nested dicts of tensors. Layer stacks carry a leading layer
 axis, as the JAX package's ``lax.scan`` stacks do, so the two parameter
@@ -9,12 +10,14 @@ trees map one to one; the port walks the layers in a Python loop.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-Tree = Any
+from repro_torch.device import resolve_device  # noqa: F401
+from repro_torch.tree import (Tree, tree_flatten, tree_leaves, tree_map,  # noqa: F401
+                               tree_unflatten)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -22,18 +25,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on. ``"cuda"`` needs a card: without
-    one this raises instead of carrying on on the CPU."""
-
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' requested but torch.cuda.is_available() is false; "
-            "pass device='cpu' to run on the CPU")
-    return dev
 
 
 def round_to(x: float, dtype: torch.dtype) -> float:
@@ -45,47 +36,23 @@ def round_to(x: float, dtype: torch.dtype) -> float:
 
 
 # ---------------------------------------------------------------------------
-# trees of tensors
+# trees of tensors (repro_torch.tree)
 # ---------------------------------------------------------------------------
-
-
-def tree_flatten(tree: Tree) -> Tuple[List[Any], Tuple[Tuple[str, ...], ...]]:
-    """Leaves of a nested dict in sorted-key order (``jax.tree_util``'s
-    order for dicts) and their key paths, which serve as the treedef."""
-
-    paths: List[Tuple[str, ...]] = []
-    leaves: List[Any] = []
-
-    def rec(node, path):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                rec(node[key], path + (key,))
-        else:
-            paths.append(path)
-            leaves.append(node)
-
-    rec(tree, ())
-    return leaves, tuple(paths)
-
-
-def tree_unflatten(paths: Sequence[Tuple[str, ...]], leaves: Sequence[Any]) -> Tree:
-    out: Dict[str, Any] = {}
-    for path, leaf in zip(paths, leaves):
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = leaf
-    return out
-
-
-def tree_map(fn: Callable, tree: Tree) -> Tree:
-    leaves, paths = tree_flatten(tree)
-    return tree_unflatten(paths, [fn(x) for x in leaves])
 
 
 def unstack_layer(params: Tree, idx: int) -> Tree:
     """One layer's params from a stacked tree (views, no copies)."""
     return tree_map(lambda x: x[idx], params)
+
+
+def unbind_layers(params: Tree) -> List[Tree]:
+    """Every layer's params from a stacked tree, as views. Under autograd
+    the stacked gradient comes back in one ``stack`` per leaf, where
+    indexing layer by layer (``unstack_layer``) would fill a zero tensor of
+    the whole stack and add into it once per layer."""
+    leaves, paths = tree_flatten(params)
+    unbound = [x.unbind(0) for x in leaves]
+    return [tree_unflatten(paths, [u[i] for u in unbound]) for i in range(len(unbound[0]))]
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,8 @@ def test_package_imports_with_jax_unavailable():
             "sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.serve, repro_torch.convert\n"
             "import repro_torch.launch.serve, repro_torch.kernels.build\n"
+            "import repro_torch.api, repro_torch.core, repro_torch.data\n"
+            "import repro_torch.launch.train, repro_torch.optim\n"
             "from repro_torch.models import Model\n"
             "from repro_torch import configs\n"
             "m = Model(configs.get_smoke_config('gemma3-1b'), device='cpu')\n"
@@ -69,22 +71,49 @@ def test_model_without_device_raises_without_a_card(monkeypatch):
     assert Model(configs.get_smoke_config("gemma3-1b"), device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("entry", ["init_params", "init_cache", "params_from_jax"])
+def _batch_iterator(**kw):
+    from repro_torch import data
+
+    arrays = {"tokens": np.zeros((4, 3), np.int32), "y": np.zeros(4, np.int32)}
+    base, meta = next(data.BatchIterator(arrays, arrays, batch_size=2, meta_batch_size=2,
+                                         unroll=1, **kw))
+    return {"base": base, "meta": meta}
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "params_from_jax",
+                                   "bert_init_params", "Model.init", "init_data_optimization_lam",
+                                   "BatchIterator"])
 def test_lower_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, entry):
     from repro_torch import configs, convert
+    from repro_torch.core import problems
+    from repro_torch.models import Model
     from repro_torch.models import common as cm
     from repro_torch.models import transformer as tf
 
     cfg = configs.get_smoke_config("gemma3-1b")
+    bert = configs.get_smoke_config("bert-base")
     call = {"init_params": lambda **kw: tf.init_params(cfg, 0, **kw),
             "init_cache": lambda **kw: tf.init_cache(cfg, 1, 8, **kw),
             "params_from_jax": lambda **kw: convert.params_from_jax(
-                {"w": np.zeros((2, 3), np.float32)}, **kw)}[entry]
+                {"w": np.zeros((2, 3), np.float32)}, **kw),
+            "bert_init_params": lambda **kw: tf.init_params(bert, 0, **kw),
+            "Model.init": lambda **kw: Model(bert, **kw).init(0),
+            "init_data_optimization_lam": lambda **kw: problems.init_data_optimization_lam(
+                0, **kw),
+            "BatchIterator": _batch_iterator}[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     leaves = cm.tree_flatten(call(device="cpu"))[0]
     assert leaves and all(x.device.type == "cpu" for x in leaves)
+
+
+def test_train_cli_without_device_raises_without_a_card(monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        train.main(["--arch", "bert-base", "--smoke", "--steps", "1"])
 
 
 def test_cli_without_device_raises_without_a_card(monkeypatch, capsys):
@@ -102,12 +131,23 @@ def test_cli_without_device_raises_without_a_card(monkeypatch, capsys):
 def test_kernel_build_names_by_content_and_needs_nvcc(monkeypatch, tmp_path):
     from repro_torch.kernels import build
 
-    assert build.SOURCE.exists()
-    first = build._target()
+    assert sorted(build.SOURCES) == ["adam_adapt", "flash_attn_bwd", "flash_attn_fwd",
+                                     "flash_decode"]
+    source = build.SOURCES["flash_decode"]
+    first = build._target(source)
     assert first.parent == build.BUILD_DIR and first.name.startswith("libflash_decode-")
     edited = tmp_path / "flash_decode.cu"
-    edited.write_text(build.SOURCE.read_text() + "\n// edit\n")
+    edited.write_text(source.read_text() + "\n// edit\n")
     assert build._target(edited) != first  # an edit never reuses a stale build
+    # a shared header is part of every source's hash
+    header = build.CSRC / "attn_common.cuh"
+    monkeypatch.setattr(build.CSRC.__class__, "glob",
+                        lambda self, pat: [tmp_path / "h.cuh"] if pat == "*.cuh" else [])
+    (tmp_path / "h.cuh").write_text(header.read_text() + "// edit\n")
+    assert build._target(source) != first
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="no kernel source"):
+        build.build("weighted_ce")
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setattr(build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
