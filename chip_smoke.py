@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, in order; any failure exits non-zero:
+Phases, in order, each printing its seconds; any failure exits non-zero:
 
 1. device: requires a CUDA card and prints the
    ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. build: compiles every kernel source under ``src/repro_torch/kernels/
    csrc/`` (``flash_decode``, ``flash_attn_fwd``, ``flash_attn_bwd``,
-   ``adam_adapt``), one nvcc per source, all at once; prints each build's
-   seconds and the ``-Xptxas -v`` register, spill and shared-memory lines.
+   ``adam_adapt``, ``weighted_ce``, ``lion_adapt``, ``adafactor_adapt``),
+   one nvcc per source, all at once; prints each build's seconds and the
+   ``-Xptxas -v`` register, spill and shared-memory lines.
 3. decode kernel: ``flash_decode`` against its plain PyTorch version on
    the card at gemma3-1b shapes (B in {1, 4, 8}, KV=1, G=4, Dh=256, T in
    {16, 128, 1024, 2048}, window on and off, softcap 0 and 50, split
@@ -27,9 +28,16 @@ Phases, in order; any failure exits non-zero:
    the f32 tolerance) of the plain version in f32 on the same inputs;
    ``adam_adapt`` at the embedding's 23,440,896 elements, the stacked MLP
    weights' 28,311,552 and a ragged size (rtol 1e-5, sum of squares 1e-4);
-   then each kernel's time per bert-base layer (B 48, S 128, bf16) and at
-   23.4 M elements beside its plain version's, the library call's and the
-   bound.
+   ``weighted_ce`` forward and backward at gemma3-1b's LM loss (the (4,
+   1023, 262144) logits view, R 4,092) and at R 37, V 5,000, f32 and bf16
+   logits (ce and lse within 1e-5 (1 + |ref|); dlogits within 1e-6 +
+   1e-5 |ref| of the plain version in f32, plus half an ulp for bf16);
+   ``lion_adapt`` and ``adafactor_adapt`` at bert-base's embedding,
+   gemma3-1b's embedding (301,989,888) and a ragged size (as
+   ``adam_adapt``); then each kernel's time (per bert-base layer at B 48,
+   S 128, bf16; the CE at gemma3-1b's shape in f32; the adaptation
+   products at 23.4 M elements) beside its plain version's, the library
+   call's and the bound.
 5. serve f32: gemma3-1b at full width and depth in f32, random weights
    from a seed, 8 requests of 300-900 prompt tokens through the
    continuous-batching executor; every status ``ok`` and the tokens equal
@@ -50,6 +58,17 @@ Phases, in order; any failure exits non-zero:
    time, samples/s, peak memory, each kernel's launches against L(K+3) +
    L(K+1) forwards, L(K+1) dq and dk/dv and one adam_adapt per theta leaf
    per step, and a profiled step's device time by phase and by kernel.
+9. train gemma f32: gemma3-1b at full width and depth in f32, the
+   per-sequence LM loss through ``weighted_ce``, batch 2, seq 1024, unroll
+   2: phase 7's three held step pairs, with K + 3 CE forwards and K + 1
+   backwards per kernel step, and one step at eps 1e-8 reported.
+10. train gemma bf16: two steps of ``python -m repro_torch.launch.train``'s
+   ``main`` at its default arch (gemma3-1b), then 10 meta steps at batch 4,
+   seq 1024, unroll 2, meta batch 2 as phase 8 times bert-base, with the
+   CE launches (5 forward, 3 backward per step) held as well.
+11. Lion and Adafactor: bert-base in f32 with each at the base level,
+   phase 7's three held step pairs each, one ``lion_adapt`` or
+   ``adafactor_adapt`` launch per theta leaf per kernel step.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. The weights and data are random, from seeds; nothing is downloaded.
@@ -704,6 +723,175 @@ def phase_train_kernel_time(dev, cfg, batch, seq):
     return out
 
 
+#: (name, B, S, V, sliced): gemma3-1b's LM loss, logits (4, 1024, V) read
+#: through the logits[:, :-1] view (R = 4,092), and a ragged shape
+CE_SHAPES = [("gemma3-1b", 4, 1024, 262_144, True), ("ragged", 1, 37, 5_000, False)]
+#: bert-base's embedding, gemma3-1b's embedding, a ragged size
+ADAPT_SIZES = (23_440_896, 301_989_888, 1_000_003)
+
+
+def _ce_inputs(rng, dev, b, s, v, sliced, dtype):
+    """Logits as the LM loss hands them to weighted_ce (the (B, S - 1, V)
+    view when ``sliced``), int32 targets (R,) and an f32 cotangent (R,)."""
+    full = (_randn(rng, (b, s, v), torch.float32, dev) * 3).to(dtype)
+    x = full[:, :-1] if sliced else full.reshape(b * s, v)
+    rows = x.numel() // v
+    t = torch.from_numpy(rng.integers(0, v, rows).astype(np.int32)).to(dev)
+    g = _randn(rng, (rows,), torch.float32, dev)
+    return x, t, g
+
+
+def phase_ce_kernel_check(dev):
+    """weighted_ce forward and backward against the plain versions: ce and
+    lse within 1e-5 (1 + |ref|), f32 dlogits within 1e-6 + 1e-5 |ref|, and
+    bf16 dlogits within half an ulp (+ the f32 tolerance) of the plain
+    version in f32 on the same inputs."""
+    from repro_torch.kernels import dispatch, weighted_ce as wce
+
+    rng = np.random.default_rng(SEED + 12)
+    worst = {"fwd": {}, "bwd": {}}
+    for name, b, s, v, sliced in CE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, t, g = _ce_inputs(rng, dev, b, s, v, sliced, dtype)
+            ce, lse = wce._fwd_cuda(x, t)
+            d = wce._bwd_cuda(x, t, lse, g)
+            torch.cuda.synchronize()
+            x32 = x.float().reshape(-1, v)  # the same values, in f32
+            ce_ref, lse_ref = wce.cross_entropy_fwd_plain(x32, t)
+            for what, a, r in (("ce", ce, ce_ref), ("lse", lse, lse_ref)):
+                excess = _excess(a, r, 1e-5, 1e-5)
+                if not excess <= 1.0:
+                    raise AssertionError(f"weighted_ce {what} vs plain at {name} {dtype}: "
+                                         f"{excess:.3f} of 1e-5 (1 + |ref|)")
+            key = str(dtype).replace("torch.", "")
+            worst["fwd"][key] = max(worst["fwd"].get(key, 0.0),
+                                    (ce - ce_ref).abs().max().item(),
+                                    (lse - lse_ref).abs().max().item())
+            del ce, x32
+            d_ref = wce.cross_entropy_bwd_plain(x.float().reshape(-1, v), t, lse_ref, g)
+            if d.dtype != dtype or d.shape != x.shape:
+                raise AssertionError(f"weighted_ce backward returned {d.dtype} {tuple(d.shape)}")
+            rtol = 1e-5 + (torch.finfo(dtype).eps / 2 if dtype != torch.float32 else 0.0)
+            share = _excess(d.reshape(-1, v), d_ref, 1e-6, rtol)
+            if not share <= 1.0:
+                raise AssertionError(f"weighted_ce dlogits vs plain in f32 at {name} {dtype}: "
+                                     f"{share:.3f} of 1e-6 + {rtol:.3g} |ref|")
+            worst["bwd"][key] = max(worst["bwd"].get(key, 0.0),
+                                    (d.reshape(-1, v).float() - d_ref).abs().max().item())
+            worst["bwd"][key + "_share_of_bound"] = max(
+                worst["bwd"].get(key + "_share_of_bound", 0.0), share)
+            del x, d, d_ref
+            torch.cuda.empty_cache()
+    log(f"kernel_check: weighted_ce at {[c[:4] for c in CE_SHAPES]} f32 and bf16 logits: "
+        f"forward max_abs_err {worst['fwd']}, backward {worst['bwd']}")
+    dispatch.reset_launches()
+    return worst
+
+
+def _dev_randn(gen, n, dev):
+    return torch.randn(n, generator=gen, device=dev, dtype=torch.float32)
+
+
+def phase_adapt_kernel_check(dev):
+    """lion_adapt and adafactor_adapt against their plain versions at
+    ADAPT_SIZES: out rtol 1e-5 / atol 1e-7, sum of squares rtol 1e-4."""
+    from repro_torch.kernels import adafactor_adapt, dispatch, lion_adapt
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    worst = {"lion_adapt": 0.0, "adafactor_adapt": 0.0}
+    for n in ADAPT_SIZES:
+        g, m, gm = (_dev_randn(gen, n, dev) * 1e-2 for _ in range(3))
+        vhat = _dev_randn(gen, n, dev).square_() * 1e-4
+        lr = torch.tensor(1e-3, device=dev)
+        for name, fn, args, kw in (
+                ("lion_adapt", lion_adapt.lion_adapt, (g, m, gm), dict(lr=lr, b1=0.9,
+                                                                      delta=1e-3)),
+                ("adafactor_adapt", adafactor_adapt.adafactor_adapt, (vhat, gm),
+                 dict(lr=lr, eps=1e-8))):
+            out, ss = fn(*args, **kw)
+            ref, ref_ss = fn(*args, backend="plain", **kw)
+            excess = _excess(out, ref, 1e-7, 1e-5)
+            ss_rel = abs(ss.item() - ref_ss.item()) / abs(ref_ss.item())
+            if not (excess <= 1.0 and ss_rel <= 1e-4):
+                raise AssertionError(f"{name} vs plain at N={n}: out {excess:.3f} of the "
+                                     f"tolerance, sum of squares {ss_rel:.2e} relative")
+            worst[name] = max(worst[name], (out - ref).abs().max().item())
+            del out, ref
+        del g, m, gm, vhat
+        torch.cuda.empty_cache()
+    log(f"kernel_check: lion_adapt, adafactor_adapt vs plain at N in {ADAPT_SIZES}: "
+        f"max_abs_err {worst} (rtol 1e-5, atol 1e-7; sum of squares rtol 1e-4)")
+    dispatch.reset_launches()
+    return worst
+
+
+def phase_new_kernel_time(dev):
+    """weighted_ce forward and backward at gemma3-1b's LM loss shape in
+    the main path's dtype (f32 logits, the (4, 1023, V) view), beside the
+    plain versions and ``F.cross_entropy(reduction="none")`` (forward; its
+    autograd backward, timed eagerly); lion_adapt and adafactor_adapt at
+    bert-base's embedding beside their plain versions (no library call)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import adafactor_adapt, lion_adapt, weighted_ce as wce
+
+    rng = np.random.default_rng(SEED + 14)
+    _, b, s, v, _ = CE_SHAPES[0]
+    x, t, g = _ce_inputs(rng, dev, b, s, v, True, torch.float32)
+    rows = t.numel()
+    _, lse = wce._fwd_cuda(x, t)
+    x2 = x.reshape(rows, v)  # a contiguous copy for the library call
+    t64 = t.long()
+    out = {}
+    fwd_ms = graph_ms(lambda: wce._fwd_cuda(x, t))
+    bwd_ms = graph_ms(lambda: wce._bwd_cuda(x, t, lse, g))
+    plain_fwd = time_ms(lambda: wce.cross_entropy_fwd_plain(x.reshape(-1, v), t), iters=10)
+    plain_bwd = time_ms(lambda: wce.cross_entropy_bwd_plain(x.reshape(-1, v), t, lse, g),
+                        iters=10)
+    lib_fwd = graph_ms(lambda: F.cross_entropy(x2, t64, reduction="none"))
+    leaf = x2.detach().requires_grad_(True)
+    lib_out = F.cross_entropy(leaf, t64, reduction="none")
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaf, g, retain_graph=True),
+                      iters=10)
+    del leaf, lib_out
+    fwd_ms_2 = graph_ms(lambda: wce._fwd_cuda(x, t))
+    bwd_ms_2 = graph_ms(lambda: wce._bwd_cuda(x, t, lse, g))
+    logits_b = rows * v * 4
+    shape = {"R": rows, "V": v, "dtype": "float32", "layout": f"({b}, {s - 1}, {v}) view"}
+    # one exp and about three more operations per logit, in f32
+    for name, ms, ms2, plain, lib, nbytes in (
+            ("weighted_ce_fwd", fwd_ms, fwd_ms_2, plain_fwd, lib_fwd, logits_b + rows * 12),
+            ("weighted_ce_bwd", bwd_ms, bwd_ms_2, plain_bwd, lib_bwd, 2 * logits_b + rows * 12)):
+        bound_ms, bound_by = _bound(nbytes, 4 * rows * v, torch.float32)
+        out[name] = {"ms": ms, "ms_repeat": ms2, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape}
+        log(f"kernel_time: {name} at R={rows} V={v} f32: ms={ms:.4f} (repeat {ms2:.4f}) "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    out["weighted_ce_bwd"]["library_call"] = "autograd backward of F.cross_entropy, eager"
+    del x, x2, t, t64, g, lse
+    torch.cuda.empty_cache()
+
+    n = ADAPT_SIZES[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    gg, m, gm = (_dev_randn(gen, n, dev) for _ in range(3))
+    vhat = _dev_randn(gen, n, dev).square_()
+    lr = torch.tensor(1e-3, device=dev)
+    for name, fn, args, kw, per_el in (
+            ("lion_adapt", lion_adapt.lion_adapt, (gg, m, gm), dict(lr=lr), (16, 10)),
+            ("adafactor_adapt", adafactor_adapt.adafactor_adapt, (vhat, gm), dict(lr=lr),
+             (12, 4))):
+        ms = graph_ms(lambda: fn(*args, **kw))
+        plain = graph_ms(lambda: fn(*args, backend="plain", **kw))
+        ms2 = graph_ms(lambda: fn(*args, **kw))
+        bound_ms, bound_by = _bound(per_el[0] * n, per_el[1] * n, torch.float32)
+        out[name] = {"ms": ms, "ms_repeat": ms2, "plain_ms": plain, "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "shape": {"N": n, "dtype": "float32"}}
+        log(f"kernel_time: {name} at N={n}: ms={ms:.4f} (repeat {ms2:.4f}) "
+            f"plain_ms={plain:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 7-8: training
 # ---------------------------------------------------------------------------
@@ -747,54 +935,135 @@ def _warm_batches(train, dev, batch, unroll, seed):
     return batches
 
 
-def _learner(model, dev, unroll, base_eps=1e-8):
-    from repro_torch import api, optim
+def _learner(model, dev, unroll, base_opt):
+    """MetaWeightNet reweighting of the model's per-example loss (the
+    classifier's for an encoder, the per-sequence LM loss otherwise),
+    ``base_opt`` at the base level, Adam at the meta level."""
+    from repro_torch import api
     from repro_torch.core import problems
 
-    spec = problems.make_data_optimization_spec(model.classifier_per_example, reweight=True)
-    learner = api.MetaLearner(spec, base_opt=optim.adam(1e-3, eps=base_eps), meta_opt="adam",
-                              meta_lr=1e-3, method="sama", unroll_steps=unroll)
+    per_example = (model.classifier_per_example if model.cfg.family == "encoder"
+                   else model.per_example)
+    spec = problems.make_data_optimization_spec(per_example, reweight=True)
+    learner = api.MetaLearner(spec, base_opt=base_opt, meta_opt="adam", meta_lr=1e-3,
+                              method="sama", unroll_steps=unroll)
     learner.init(model.init(SEED), problems.init_data_optimization_lam(SEED + 1, device=dev))
     return learner
+
+
+def _lm_warm_batches(cfg, dev, batch, seq, unroll, seed):
+    """(base_batches, meta_batch) of LM token sequences for comparing
+    hypergradients: the K base batches are row permutations of one set of
+    sequences and the meta batch is that set (see _warm_batches)."""
+    from repro_torch import data
+
+    rng = np.random.default_rng(seed)
+    lm_cfg = data.LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq)
+
+    def batches(i):
+        toks = data.lm_batch(lm_cfg, rng, batch)["tokens"]
+        perms = np.stack([rng.permutation(batch) for _ in range(unroll)])
+        return ({"tokens": torch.from_numpy(toks[perms]).to(dev)},
+                {"tokens": torch.from_numpy(toks).to(dev)})
+
+    return batches
 
 
 F32_TOL = {"base_loss": 1e-5, "meta_loss": 1e-5, "eps": 2e-3, "hypergrad_norm": 2e-3}
 
 
-def _step_pair(learner, state, base, meta):
+def _step_pair(learner, state, base, meta, counted=(), sign_lr=None):
     """One meta step from ``state`` through the kernels and with every
-    kernel plain. Returns the plain state and, per metric, (kernels,
-    plain, relative difference); per theta/lam leaf set, the largest
-    difference and its share of 1e-6 + 5% of the largest update."""
+    kernel plain. Returns the plain state; per metric, (kernels, plain,
+    relative difference); per theta/lam leaf set, the largest difference,
+    its share of 1e-6 + 5% of the largest update, and [how many
+    coordinates lie beyond that bound, how many there are, how many of
+    those beyond are not a sign flip]: with ``sign_lr`` (Lion's rate) a
+    flip is a difference within the bound of 2 lr (opposite signs) or lr
+    (one sign 0); without it, none is. Also the kernel step's launches of
+    the ``counted`` kernels and the two steps' seconds. Only theta and lam
+    of the kernel step are kept while the plain step runs."""
     from repro_torch import tree
     from repro_torch.core.engine import packed_read
     from repro_torch.kernels import dispatch
 
+    dispatch.reset_launches()
     t0 = time.perf_counter()
     got_s, got = learner.step_fn(state, base, meta)
     got = packed_read(got)
     t1 = time.perf_counter()
+    launches = {n: dispatch.launches(n) for n in counted}
+    got_s = {"theta": got_s.theta, "lam": got_s.lam}
     with dispatch.plain_everywhere():
         ref_s, ref = learner.step_fn(state, base, meta)
         ref = packed_read(ref)
     t2 = time.perf_counter()
     diff = {k: (got[k], ref[k], abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30)) for k in F32_TOL}
     for field in ("theta", "lam"):
-        d_max, share = 0.0, 0.0
-        for x, y, y0 in zip(*(tree.tree_leaves(getattr(st, field))
-                              for st in (got_s, ref_s, state))):
-            d = (x - y).abs().max().item()
-            d_max = max(d_max, d)
-            share = max(share, d / (1e-6 + 0.05 * (y - y0).abs().max().item()))
+        d_max, share, beyond, not_flips, total = 0.0, 0.0, 0, 0, 0
+        for x, y, y0 in zip(tree.tree_leaves(got_s[field]), tree.tree_leaves(getattr(ref_s, field)),
+                            tree.tree_leaves(getattr(state, field))):
+            d = (x - y).abs()
+            bound = 1e-6 + 0.05 * (y - y0).abs().max().item()
+            d_max = max(d_max, d.max().item())
+            share = max(share, d.max().item() / bound)
+            over = d > bound
+            beyond += int(over.sum().item())
+            if sign_lr is not None:
+                over &= ((d - 2 * sign_lr).abs() > bound) & ((d - sign_lr).abs() > bound)
+            not_flips += int(over.sum().item())
+            total += x.numel()
         diff[f"{field}_max_abs_diff"], diff[f"{field}_share_of_bound"] = d_max, share
-    return ref_s, diff, (t1 - t0, t2 - t1)
+        diff[f"{field}_beyond_bound"] = [beyond, total, not_flips]
+    return ref_s, diff, launches, (t1 - t0, t2 - t1)
+
+
+def _held_steps(tag, learner, batches, steps, want=None, sign_lr=None):
+    """``steps`` meta steps, each from one state through the kernels and
+    with every kernel plain (dispatch.plain_everywhere, a context the model
+    never enters); the run goes on from the plain step's state (run
+    freely, two f32 trajectories part within a few meta steps: ROADMAP
+    queue 3). Held: the metrics within F32_TOL; theta and lam per leaf
+    within 1e-6 + 5% of the step's largest update; the kernel step's
+    launches equal to ``want``. ``sign_lr`` (Lion) admits theta coordinates
+    beyond the bound only where the two steps took opposite signs of a
+    momentum vote c that rounding decides: each 2 lr (or lr, a sign of 0)
+    apart within the bound, and at most 1e-5 of the coordinates."""
+    state, rows, secs = learner.state, [], [0.0, 0.0]
+    for i in range(steps):
+        state, diff, launches, (tk, tp) = _step_pair(learner, state, *batches(i),
+                                                     tuple(want or ()), sign_lr)
+        secs[0] += tk
+        secs[1] += tp
+        rows.append(diff)
+        if want is not None and launches != want:
+            raise AssertionError(f"{tag} step {i}: launches {launches} != {want}")
+        for key, rtol in F32_TOL.items():
+            got, ref, _ = diff[key]
+            if not abs(got - ref) <= rtol * abs(ref) + 1e-7:
+                raise AssertionError(f"{tag} step {i} {key}: kernels {got!r} vs plain {ref!r}")
+        for field in ("theta", "lam"):
+            if diff[f"{field}_share_of_bound"] <= 1.0:
+                continue
+            beyond, total, not_flips = diff[f"{field}_beyond_bound"]
+            flips_ok = (sign_lr is not None and field == "theta" and not_flips == 0
+                        and beyond <= 1e-5 * total)
+            if not flips_ok:
+                raise AssertionError(
+                    f"{tag} step {i} {field}: {diff[f'{field}_max_abs_diff']:.3e} is "
+                    f"{diff[f'{field}_share_of_bound']:.2f} of the bound; {beyond} of {total} "
+                    f"coordinates beyond it, {not_flips} of them no sign flip")
+    worst = {k: max(r[k][2] for r in rows) for k in F32_TOL}
+    for field in ("theta", "lam"):
+        for k in (f"{field}_max_abs_diff", f"{field}_share_of_bound"):
+            worst[k] = max(r[k] for r in rows)
+        worst[f"{field}_beyond_bound"] = max(r[f"{field}_beyond_bound"][0] for r in rows)
+    return state, {"steps": steps, "kernels_s": secs[0], "plain_s": secs[1], "per_step": rows,
+                   "worst": worst}
 
 
 def phase_train_f32(base_cfg, dev, batch=16, seq=128, unroll=2, steps=3):
-    """Each meta step from one state twice, through the kernels and with
-    every kernel plain; the run goes on from the plain step's state (run
-    freely, two f32 trajectories part within a few meta steps: ROADMAP
-    queue 3). Held within F32_TOL and the update bound.
+    """bert-base in f32: _held_steps on WRENCH-analog data with warm rows.
 
     The checked run's base Adam takes eps = 1e-3, which bounds the
     adaptation diagonal by lr / eps. With the paper's 1e-8, the coordinates
@@ -802,35 +1071,81 @@ def phase_train_f32(base_cfg, dev, batch=16, seq=128, unroll=2, steps=3):
     the hypergradient and the nudged theta follow rounding in any two
     implementations; one more step at 1e-8 is measured and reported here,
     not held to a tolerance."""
+    from repro_torch import optim
     from repro_torch.models import Model
 
     cfg = base_cfg.replace(dtype="float32")
     model = Model(cfg, device=dev)
     train, _ = _wrench(cfg, seq, 256, 16, SEED + 20)
     batches = _warm_batches(train, dev, batch, unroll, SEED + 21)
-    learner = _learner(model, dev, unroll, base_eps=1e-3)
-    state, rows, secs = learner.state, [], [0.0, 0.0]
-    for i in range(steps):
-        state, diff, (tk, tp) = _step_pair(learner, state, *batches(i))
-        secs[0] += tk
-        secs[1] += tp
-        rows.append(diff)
-        for key, rtol in F32_TOL.items():
-            got, ref, _ = diff[key]
-            if not abs(got - ref) <= rtol * abs(ref) + 1e-7:
-                raise AssertionError(f"train f32 step {i} {key}: kernels {got!r} vs plain {ref!r}")
-        for field in ("theta", "lam"):
-            if not diff[f"{field}_share_of_bound"] <= 1.0:
-                raise AssertionError(f"train f32 step {i} {field}: {diff[f'{field}_max_abs_diff']:.3e}"
-                                     f" is {diff[f'{field}_share_of_bound']:.2f} of the bound")
-    learner_8 = _learner(model, dev, unroll)
-    _, diff_8, _ = _step_pair(learner_8, learner_8.state, *batches(0))
-    out = {"steps": steps, "batch": batch, "seq": seq, "unroll": unroll, "base_adam_eps": 1e-3,
-           "kernels_s": secs[0], "plain_s": secs[1], "per_step": rows,
-           "worst": {k: max(r[k][2] if isinstance(r[k], tuple) else r[k] for r in rows)
-                     for k in rows[0]},
-           "base_adam_eps_1e-8_one_step_not_held": diff_8}
+    learner = _learner(model, dev, unroll, optim.adam(1e-3, eps=1e-3))
+    _, out = _held_steps("train f32", learner, batches, steps)
+    del learner
+    learner_8 = _learner(model, dev, unroll, optim.adam(1e-3))
+    _, diff_8, _, _ = _step_pair(learner_8, learner_8.state, *batches(0))
+    out.update({"batch": batch, "seq": seq, "unroll": unroll, "base_adam_eps": 1e-3,
+                "base_adam_eps_1e-8_one_step_not_held": diff_8})
     log("train_f32: " + json.dumps(out))
+    return out
+
+
+def phase_train_gemma_f32(base_cfg, dev, batch=2, seq=1024, unroll=2, steps=3):
+    """gemma3-1b at full width and depth in f32, the per-sequence LM loss
+    (weighted_ce over 262,144 tokens), batch 2, seq 1024 (the 512-token
+    window masks): _held_steps with base Adam eps 1e-3 on warm rows, and one
+    step at eps 1e-8 reported, not held (as phase_train_f32)."""
+    from repro_torch import optim, tree
+    from repro_torch.kernels import flash_attn, weighted_ce as wce
+    from repro_torch.models import Model
+
+    cfg = base_cfg.replace(dtype="float32")
+    model = Model(cfg, device=dev)
+    batches = _lm_warm_batches(cfg, dev, batch, seq, unroll, SEED + 40)
+    learner = _learner(model, dev, unroll, optim.adam(1e-3, eps=1e-3))
+    L, K = cfg.num_layers, unroll
+    want = {wce.FWD: K + 3, wce.BWD: K + 1, flash_attn.FWD: L * (K + 3) + L * (K + 1),
+            flash_attn.DQ: L * (K + 1), flash_attn.DKV: L * (K + 1),
+            "adam_adapt": len(tree.tree_leaves(learner.state.theta))}
+    _, out = _held_steps("train gemma f32", learner, batches, steps, want)
+    del learner
+    torch.cuda.empty_cache()
+    learner_8 = _learner(model, dev, unroll, optim.adam(1e-3))
+    _, diff_8, _, _ = _step_pair(learner_8, learner_8.state, *batches(0))
+    del learner_8
+    torch.cuda.empty_cache()
+    out.update({"batch": batch, "seq": seq, "unroll": unroll, "base_adam_eps": 1e-3,
+                "launches_per_step": want, "base_adam_eps_1e-8_one_step_not_held": diff_8})
+    log("train_gemma_f32: " + json.dumps(out))
+    return out
+
+
+def phase_train_lion_adafactor(base_cfg, dev, batch=16, seq=128, unroll=2, steps=3):
+    """bert-base in f32 with Lion (lr 1e-4) and Adafactor (lr 1e-3, eps
+    1e-3: its diagonal lr / (sqrt(vhat) + eps) has Adam's rounding-level
+    coordinates at 1e-8) at the base level: _held_steps, each kernel step
+    launching one lion_adapt or adafactor_adapt per theta leaf."""
+    from repro_torch import optim, tree
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import Model
+
+    cfg = base_cfg.replace(dtype="float32")
+    model = Model(cfg, device=dev)
+    train, _ = _wrench(cfg, seq, 256, 16, SEED + 50)
+    out = {}
+    L, K = cfg.num_layers, unroll
+    for name, opt, sign_lr in (("lion", optim.lion(1e-4), 1e-4),
+                               ("adafactor", optim.adafactor(1e-3, eps=1e-3), None)):
+        batches = _warm_batches(train, dev, batch, unroll, SEED + 51)
+        learner = _learner(model, dev, unroll, opt)
+        leaves = len(tree.tree_leaves(learner.state.theta))
+        want = {f"{name}_adapt": leaves, flash_attn.FWD: L * (K + 3) + L * (K + 1),
+                flash_attn.DQ: L * (K + 1), flash_attn.DKV: L * (K + 1)}
+        _, res = _held_steps(f"train {name}", learner, batches, steps, want, sign_lr)
+        res["launches_per_step"] = want
+        out[name] = res
+        del learner
+        torch.cuda.empty_cache()
+    log("train_lion_adafactor: " + json.dumps(out))
     return out
 
 
@@ -868,19 +1183,18 @@ def _device_time_by_phase(trace_path):
     return {k: v / 1e3 for k, v in by_phase.items()}, kernels, total / 1e3
 
 
-def phase_train_bf16(cfg, dev, out_dir, batch=48, seq=128, unroll=2, steps=10):
+def _timed_fit(tag, learner, it, steps, want_per_step, out_dir, trace_name, per_step):
+    """One warm step, then ``steps`` meta steps through ``MetaLearner.fit``
+    (metrics read every step: a sync each) with the launches of the
+    kernels in ``want_per_step`` counted from 0 and held to steps x the
+    count; step wall times, ``per_step`` units (samples, tokens) per
+    second, peak memory; then one more step under torch.profiler (its
+    launches outside the count): device time by phase and by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import data, tree
     from repro_torch.core.engine import packed_read
-    from repro_torch.kernels import dispatch, flash_attn
-    from repro_torch.models import Model
+    from repro_torch.kernels import dispatch
 
-    model = Model(cfg, device=dev)
-    train, meta = _wrench(cfg, seq, 1024, 256, SEED + 30)
-    learner = _learner(model, dev, unroll)
-    it = data.BatchIterator(train, meta, batch_size=batch, meta_batch_size=batch,
-                            unroll=unroll, seed=SEED + 31, device=dev)
     packed_read(learner.step(*next(it)))  # warm: cuBLAS handles, kernel libraries
     stamps = []
 
@@ -893,34 +1207,25 @@ def phase_train_bf16(cfg, dev, out_dir, batch=48, seq=128, unroll=2, steps=10):
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launches()  # counts of the main path's run only
     history = learner.fit(timed(), steps=steps, log_every=1)
-    stamps.append(time.perf_counter())  # fit reads every step's metrics: a sync each
-    launches = {n: dispatch.launches(n) for n in (flash_attn.FWD, flash_attn.DQ,
-                                                  flash_attn.DKV, "adam_adapt")}
+    stamps.append(time.perf_counter())
+    launches = {n: dispatch.launches(n) for n in want_per_step}
     peak = torch.cuda.max_memory_allocated()
     walls = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
-    L, K = cfg.num_layers, unroll
-    leaves = len(tree.tree_leaves(learner.state.theta))
-    want = {flash_attn.FWD: steps * (L * (K + 3) + L * (K + 1)),
-            flash_attn.DQ: steps * L * (K + 1), flash_attn.DKV: steps * L * (K + 1),
-            "adam_adapt": steps * leaves}
+    want = {n: steps * w for n, w in want_per_step.items()}
     if launches != want:
-        raise AssertionError(f"train bf16 launches {launches} != {want}")
+        raise AssertionError(f"{tag} launches {launches} != {want}")
     for row in history:
         if not all(math.isfinite(row[k]) for k in ("base_loss", "meta_loss", "hypergrad_norm")):
-            raise AssertionError(f"train bf16: non-finite metrics {row}")
+            raise AssertionError(f"{tag}: non-finite metrics {row}")
     step_ms = float(np.median(walls))
-    result = {"batch": batch, "seq": seq, "unroll": unroll, "steps": steps,
-              "step_ms_median": step_ms, "step_ms_min": min(walls), "step_ms_max": max(walls),
-              "step_ms_all": walls, "samples_per_s": batch * unroll / step_ms * 1e3,
+    result = {"steps": steps, "step_ms_median": step_ms, "step_ms_min": min(walls),
+              "step_ms_max": max(walls), "step_ms_all": walls,
+              **{f"{unit}_per_s": n / step_ms * 1e3 for unit, n in per_step.items()},
               "max_memory_allocated": peak, "launches": launches,
-              "launches_formula": {"flash_attention_fwd": "steps*(L*(K+3)+L*(K+1))",
-                                   "flash_attention_dq": "steps*L*(K+1)",
-                                   "flash_attention_dkv": "steps*L*(K+1)",
-                                   "adam_adapt": f"steps*{leaves} theta leaves"},
+              "launches_per_step": want_per_step,
               "first_and_last_metrics": [history[0], history[-1]]}
-    log("train_bf16: " + json.dumps(result))
+    log(f"{tag}: " + json.dumps(result))
 
-    # one more step under the profiler (its launches are outside the count)
     base_b, meta_b = next(it)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -928,10 +1233,10 @@ def phase_train_bf16(cfg, dev, out_dir, batch=48, seq=128, unroll=2, steps=10):
         packed_read(learner.step(base_b, meta_b))
         wall_ms = (time.perf_counter() - t0) * 1e3
     os.makedirs(out_dir, exist_ok=True)
-    trace_path = os.path.join(out_dir, "train_step_trace.json")
+    trace_path = os.path.join(out_dir, f"{trace_name}_trace.json")
     prof.export_chrome_trace(trace_path)
     phases, kernels, device_ms = _device_time_by_phase(trace_path)
-    with open(os.path.join(out_dir, "train_step_kernels.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{trace_name}_kernels.txt"), "w") as f:
         for key, (us, count) in kernels:
             f.write(f"{us:12.1f} us  {count:5d}x  {key}\n")
     prof_out = {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
@@ -941,8 +1246,80 @@ def phase_train_bf16(cfg, dev, out_dir, batch=48, seq=128, unroll=2, steps=10):
                 "device_ms_by_phase": phases,
                 "top": [{"name": k[:80], "ms": us / 1e3, "count": c}
                         for k, (us, c) in kernels[:15]]}
-    log("train_step_profile: " + json.dumps(prof_out))
+    log(f"{tag}_step_profile: " + json.dumps(prof_out))
     result["step_profile"] = prof_out
+    return result
+
+
+def _train_launches(cfg, unroll, leaves):
+    """Per meta step: L(K+3) flash forwards + L(K+1) remat recomputes, L(K+1)
+    dq and dk/dv, one adam_adapt per theta leaf."""
+    from repro_torch.kernels import flash_attn
+
+    L, K = cfg.num_layers, unroll
+    return {flash_attn.FWD: L * (K + 3) + L * (K + 1), flash_attn.DQ: L * (K + 1),
+            flash_attn.DKV: L * (K + 1), "adam_adapt": leaves}
+
+
+def phase_train_bf16(cfg, dev, out_dir, batch=48, seq=128, unroll=2, steps=10):
+    """bert-base in its own dtype on WRENCH-analog data."""
+    from repro_torch import data, optim, tree
+    from repro_torch.models import Model
+
+    model = Model(cfg, device=dev)
+    train, meta = _wrench(cfg, seq, 1024, 256, SEED + 30)
+    learner = _learner(model, dev, unroll, optim.adam(1e-3))
+    it = data.BatchIterator(train, meta, batch_size=batch, meta_batch_size=batch,
+                            unroll=unroll, seed=SEED + 31, device=dev)
+    want = _train_launches(cfg, unroll, len(tree.tree_leaves(learner.state.theta)))
+    result = _timed_fit("train_bf16", learner, it, steps, want, out_dir, "train_step",
+                        {"samples": batch * unroll})
+    result.update({"batch": batch, "seq": seq, "unroll": unroll})
+    return result
+
+
+def phase_train_gemma_bf16(cfg, dev, out_dir, batch=4, seq=1024, unroll=2, steps=10):
+    """gemma3-1b in its own dtypes (f32 parameters, bf16 activations): two
+    steps of the train CLI at its default arch (its JSON lines finite),
+    then ``steps`` meta steps at batch 4, seq 1024, unroll 2, meta batch 2
+    (the CLI's batch // 2) on the CLI's LM stream. Tokens and samples per
+    second count the base batches (K x B sequences of S tokens)."""
+    import contextlib
+    import io
+
+    from repro_torch import optim, tree
+    from repro_torch.kernels import weighted_ce as wce
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train.main(["--steps", "2", "--log-every", "1"])
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()]
+    if [r.get("step") for r in rows] != [0, 1] or not all(
+            math.isfinite(r[k]) for r in rows for k in ("base_loss", "meta_loss",
+                                                        "hypergrad_norm", "eps")):
+        raise AssertionError(f"train CLI (default arch): {rows}")
+    log(f"train_cli: default arch {cfg.name}, {time.perf_counter() - t0:.1f}s: "
+        + json.dumps(rows))
+    torch.cuda.empty_cache()
+
+    model = Model(cfg, device=dev)
+    learner = _learner(model, dev, unroll, optim.adam(1e-3))
+    make_batch = train.make_batch_fn(cfg, seq, dev, np.random.default_rng(SEED + 60))
+
+    def it():
+        while True:
+            yield make_batch(batch, unroll), make_batch(max(batch // 2, 1))
+
+    want = {wce.FWD: unroll + 3, wce.BWD: unroll + 1,
+            **_train_launches(cfg, unroll, len(tree.tree_leaves(learner.state.theta)))}
+    result = _timed_fit("train_gemma_bf16", learner, it(), steps, want, out_dir,
+                        "train_gemma_step",
+                        {"samples": batch * unroll, "tokens": batch * unroll * seq})
+    result.update({"batch": batch, "seq": seq, "unroll": unroll,
+                   "meta_batch": max(batch // 2, 1), "cli_rows": rows})
     return result
 
 
@@ -952,28 +1329,38 @@ def phase_train_bf16(cfg, dev, out_dir, batch=48, seq=128, unroll=2, steps=10):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
-                    help="directory for the profiler traces of a decode and a training step")
+                    help="directory for the profiler traces of a decode and two training steps")
     args = ap.parse_args()
+
+    t_start = time.perf_counter()
+    secs = {}
+
+    def timed(name, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        secs[name] = time.perf_counter() - t0
+        log(f"phase {name}: {secs[name]:.1f}s")
+        return out
 
     phase_device()
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch import configs
-    from repro_torch.kernels import flash_attn
+    from repro_torch.kernels import flash_attn, weighted_ce as wce
     from repro_torch.models import Model
     from repro_torch.models.common import tree_flatten
 
     dev = torch.device("cuda", 0)
     cfg = configs.get_config("gemma3-1b")
     bert = configs.get_config("bert-base")
-    build_s = phase_build()
+    build_s = timed("build", phase_build)
 
     # phase 3: the decode kernel
     entry = {"name": "flash_decode", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/flash_attn.py:490",
              "build_seconds": build_s["flash_decode"]}
-    worst, worst_vs_f32 = phase_kernel_check(dev)
-    timing = phase_kernel_time(dev, cfg, slots=4, t=1024)
+    worst, worst_vs_f32 = timed("decode_kernel_check", phase_kernel_check, dev)
+    timing = timed("decode_kernel_time", phase_kernel_time, dev, cfg, slots=4, t=1024)
     # "max_abs_err" and "ms" are the keys every kernels line carries; they
     # are the bf16 error and the kernel time, which the serving path's own
     # names max_err_bf16 and kernel_ms repeat
@@ -983,19 +1370,34 @@ def main():
                   "kernel_ms": timing["ms"], **timing})
 
     # phase 4: the training kernels
-    t_worst, t_share, adam_worst = phase_train_kernel_check(dev)
-    t_time = phase_train_kernel_time(dev, bert, batch=48, seq=128)
+    t_worst, t_share, adam_worst = timed("train_kernel_check", phase_train_kernel_check, dev)
+    ce_worst = timed("ce_kernel_check", phase_ce_kernel_check, dev)
+    adapt_worst = timed("adapt_kernel_check", phase_adapt_kernel_check, dev)
+    t_time = timed("train_kernel_time", phase_train_kernel_time, dev, bert, batch=48, seq=128)
+    t_time.update(timed("new_kernel_time", phase_new_kernel_time, dev))
     train_entries = []
     for name, source, replaces in (
             (flash_attn.FWD, "flash_attn_fwd", "src/repro/kernels/flash_attn.py:118"),
             (flash_attn.DQ, "flash_attn_bwd", "src/repro/kernels/flash_attn.py:253"),
             (flash_attn.DKV, "flash_attn_bwd", "src/repro/kernels/flash_attn.py:282"),
-            ("adam_adapt", "adam_adapt", "src/repro/kernels/adam_adapt.py:30")):
+            ("adam_adapt", "adam_adapt", "src/repro/kernels/adam_adapt.py:30"),
+            (wce.FWD, "weighted_ce", "src/repro/kernels/weighted_ce.py:28"),
+            (wce.BWD, "weighted_ce", "src/repro/kernels/weighted_ce.py:60"),
+            ("lion_adapt", "lion_adapt", "src/repro/kernels/lion_adapt.py:28"),
+            ("adafactor_adapt", "adafactor_adapt", "src/repro/kernels/adafactor_adapt.py:26")):
         e = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}.cu", "replaces": replaces,
              "build_seconds": build_s[source]}
         if name == "adam_adapt":
             e["max_abs_err"] = adam_worst
+        elif name in adapt_worst:
+            e["max_abs_err"] = adapt_worst[name]
+        elif name in (wce.FWD, wce.BWD):
+            w = ce_worst["fwd" if name == wce.FWD else "bwd"]
+            e.update({"max_abs_err": max(w["float32"], w["bfloat16"]),
+                      "max_err_f32": w["float32"], "max_err_bf16_logits": w["bfloat16"]})
+            if name == wce.BWD:
+                e["bf16_vs_f32_share_of_bound"] = w["bfloat16_share_of_bound"]
         else:
             e.update({"max_abs_err": t_worst[name][torch.bfloat16],
                       "max_err_f32": t_worst[name][torch.float32],
@@ -1003,6 +1405,7 @@ def main():
                       "bf16_vs_f32_share_of_bound": t_share[name]})
         e.update(t_time[name])
         train_entries.append(e)
+    by_name = {e["name"]: e for e in train_entries}
 
     # phases 5-6: serving
     t0 = time.perf_counter()
@@ -1010,19 +1413,42 @@ def main():
     torch.cuda.synchronize()
     log(f"init: gemma3-1b {sum(x.numel() for x in tree_flatten(params)[0])} params f32 "
         f"in {time.perf_counter() - t0:.2f}s")
-    phase_serve_f32(cfg, params, dev)
-    serve_out, launches = phase_serve_bf16(cfg, params, dev, args.out)
+    timed("serve_f32", phase_serve_f32, cfg, params, dev)
+    serve_out, launches = timed("serve_bf16", phase_serve_bf16, cfg, params, dev, args.out)
     entry["launches"] = launches
     entry["serve_bf16"] = serve_out
     del params
     torch.cuda.empty_cache()
 
-    # phases 7-8: training
-    phase_train_f32(bert, dev)
+    # phases 7-8: training bert-base
+    timed("train_f32", phase_train_f32, bert, dev)
     torch.cuda.empty_cache()
-    train_out = phase_train_bf16(bert, dev, args.out)
-    for e in train_entries:
-        e["launches"] = train_out["launches"][e["name"]]
+    bert_out = timed("train_bf16", phase_train_bf16, bert, dev, args.out)
+    torch.cuda.empty_cache()
+
+    # phases 9-11: training gemma3-1b, and Lion and Adafactor bases
+    timed("train_gemma_f32", phase_train_gemma_f32, cfg, dev)
+    torch.cuda.empty_cache()
+    gemma_out = timed("train_gemma_bf16", phase_train_gemma_bf16, cfg, dev, args.out)
+    torch.cuda.empty_cache()
+    la_out = timed("train_lion_adafactor", phase_train_lion_adafactor, bert, dev)
+
+    # launches: each kernel's count from this slice's main path (the gemma3-1b
+    # bf16 run) where it runs there, else from the run that drives it (the
+    # Lion and Adafactor kernel steps); the bert-base run's counts beside them
+    for name, e in by_name.items():
+        if name in gemma_out["launches"]:
+            e["launches"] = gemma_out["launches"][name]
+            e["launches_path"] = "train_gemma_bf16 (10 meta steps)"
+        else:
+            base = name.replace("_adapt", "")
+            e["launches"] = la_out[base]["launches_per_step"][name] * la_out[base]["steps"]
+            e["launches_path"] = f"train_lion_adafactor {base} (kernel steps)"
+        if name in bert_out["launches"]:
+            e["launches_train_bf16_bert"] = bert_out["launches"][name]
+        if not e["launches"] >= 1:
+            raise AssertionError(f"{name}: no launch on its path")
+    log(f"phase_seconds: {json.dumps(secs)} total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": [entry] + train_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ here. The trees have the same nested-dict structure and stacked layer
 axes on both sides, so leaves map one to one. The same functions carry
 decode caches, and ``state_from_jax`` / ``state_to_numpy`` carry a whole
 training state (theta, lam, both optimizers' moments and counts, the
-step) so that both packages can start from one state.
+step) so that both packages can start from one state; moments that are
+nested one level below the parameter tree, as Adafactor's ``{"r", "c"}``
+and ``{"v"}`` statistics, cross as nested dicts.
 """
 
 from __future__ import annotations

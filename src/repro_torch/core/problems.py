@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import meta_modules as mm
 from repro_torch.core.bilevel import BilevelSpec
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, weighted_ce
 from repro_torch.device import resolve_device
 
 Tree = Any
@@ -39,19 +39,13 @@ PerExampleFn = Callable[[Tree, Any], PerExample]
 
 
 def vocab_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Per-row CE (..., ) f32 over (..., V) logits: the route the JAX
-    package takes through its ``weighted_ce`` kernel at
-    ``CE_VOCAB_THRESHOLD`` classes and above. That kernel is not ported
-    yet: a CUDA tensor raises rather than compute the plain CE on the
-    card; a CPU tensor takes the plain version (``ref.cross_entropy``)."""
+    """Per-row CE (...) f32 over (..., V) logits: the route the JAX package
+    takes through its ``weighted_ce`` kernel at ``CE_VOCAB_THRESHOLD``
+    classes and above (``ops.cross_entropy``). A CUDA tensor launches the
+    port's ``weighted_ce`` kernels, forward and backward; a CPU tensor
+    takes their plain versions."""
 
-    if dispatch.route("weighted_ce", logits) == dispatch.CUDA:
-        raise NotImplementedError(
-            f"per-example CE over {logits.shape[-1]} classes takes the weighted_ce "
-            "kernel, which the port has not ported yet")
-    lf = logits.float()
-    tgt = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
-    return torch.logsumexp(lf, dim=-1) - tgt
+    return weighted_ce.cross_entropy(logits, targets)
 
 
 def init_data_optimization_lam(

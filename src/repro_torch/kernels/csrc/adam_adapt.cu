@@ -20,81 +20,50 @@
 // What the design does: one grid-stride pass with 16-byte loads and
 // stores where the arrays allow them (the scalar loop takes the rest), a
 // fixed grid (so the partial sums, and their sum, come out the same on
-// every run), and one f32 partial per block, reduced in a fixed order.
+// every run), and one f32 partial per block, reduced in a fixed order
+// (flat_pass.cuh, shared with lion_adapt.cu and adafactor_adapt.cu).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "flat_pass.cuh"
 
-constexpr int kThreads = 256;
+namespace {
 
 struct Coef {
   float b1, omb1, b2, omb2, eps;
 };
 
-__device__ __forceinline__ float adapt(float g, float m, float v, float gm, float bc1, float bc2,
-                                       float a, float bb, float lr, const Coef& c) {
-  const float m1 = c.b1 * m + c.omb1 * g;
-  const float v1 = c.b2 * v + c.omb2 * g * g;
-  const float mhat = m1 / bc1;
-  const float vhat = v1 / bc2;
-  const float sq = sqrtf(vhat);
-  const float denom = sq + c.eps;
-  const float diag = lr * (a / denom - mhat * bb * g / (fmaxf(sq, 1e-15f) * denom * denom));
-  return diag * gm;
-}
+struct AdamOp {
+  Coef c;
+  float bc1, bc2, a, bb, lr;
+  // x = (g, m, v, g_meta)
+  __device__ __forceinline__ float operator()(const float (&x)[4]) const {
+    const float g = x[0];
+    const float m1 = c.b1 * x[1] + c.omb1 * g;
+    const float v1 = c.b2 * x[2] + c.omb2 * g * g;
+    const float mhat = m1 / bc1;
+    const float vhat = v1 / bc2;
+    const float sq = sqrtf(vhat);
+    const float denom = sq + c.eps;
+    const float diag = lr * (a / denom - mhat * bb * g / (fmaxf(sq, 1e-15f) * denom * denom));
+    return diag * x[3];
+  }
+};
 
-__global__ void __launch_bounds__(kThreads)
-adam_adapt_kernel(const float* __restrict__ g, const float* __restrict__ m,
-                  const float* __restrict__ v, const float* __restrict__ gm,
-                  const float* __restrict__ sched, float* __restrict__ out,
+__global__ void __launch_bounds__(flat::kThreads)
+adam_adapt_kernel(flat::Ptrs<4> in, const float* __restrict__ sched, float* __restrict__ out,
                   float* __restrict__ partial, long long n, int vec, Coef c) {
   const float t = sched[0];
-  const float lr = sched[1];
-  const float bc1 = 1.f - powf(c.b1, t);
-  const float bc2 = 1.f - powf(c.b2, t);
-  const float a = c.omb1 / bc1;
-  const float bb = c.omb2 / bc2;
-  const long long stride = (long long)gridDim.x * kThreads;
-  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  float ss = 0.f;
-  long long done = 0;
-  if (vec) {  // every pointer 16-byte aligned
-    const long long n4 = n / 4;
-    for (long long i = tid; i < n4; i += stride) {
-      const float4 g4 = reinterpret_cast<const float4*>(g)[i];
-      const float4 m4 = reinterpret_cast<const float4*>(m)[i];
-      const float4 v4 = reinterpret_cast<const float4*>(v)[i];
-      const float4 q4 = reinterpret_cast<const float4*>(gm)[i];
-      float4 o;
-      o.x = adapt(g4.x, m4.x, v4.x, q4.x, bc1, bc2, a, bb, lr, c);
-      o.y = adapt(g4.y, m4.y, v4.y, q4.y, bc1, bc2, a, bb, lr, c);
-      o.z = adapt(g4.z, m4.z, v4.z, q4.z, bc1, bc2, a, bb, lr, c);
-      o.w = adapt(g4.w, m4.w, v4.w, q4.w, bc1, bc2, a, bb, lr, c);
-      reinterpret_cast<float4*>(out)[i] = o;
-      ss += o.x * o.x + o.y * o.y + o.z * o.z + o.w * o.w;
-    }
-    done = n4 * 4;
-  }
-  for (long long i = done + tid; i < n; i += stride) {
-    const float o = adapt(g[i], m[i], v[i], gm[i], bc1, bc2, a, bb, lr, c);
-    out[i] = o;
-    ss += o * o;
-  }
-
-  __shared__ float warp_ss[kThreads / 32];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if ((threadIdx.x & 31) == 0) warp_ss[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_ss[w];
-    partial[blockIdx.x] = total;
-  }
+  AdamOp op;
+  op.c = c;
+  op.lr = sched[1];
+  op.bc1 = 1.f - powf(c.b1, t);
+  op.bc2 = 1.f - powf(c.b2, t);
+  op.a = c.omb1 / op.bc1;
+  op.bb = c.omb2 / op.bc2;
+  flat::pass(in, out, partial, n, vec, op);
 }
 
 }  // namespace
@@ -108,14 +77,11 @@ extern "C" int adam_adapt_launch(const void* g, const void* m, const void* v, co
                                  int blocks, float b1, float omb1, float b2, float omb2,
                                  float eps, void* stream) {
   if (n < 1 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const uintptr_t any = reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(m) |
-                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g_meta) |
-                        reinterpret_cast<uintptr_t>(out);
-  const int vec = (any % 16) == 0;
-  adam_adapt_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(m), static_cast<const float*>(v),
-      static_cast<const float*>(g_meta), static_cast<const float*>(sched),
-      static_cast<float*>(out), static_cast<float*>(partial), n, vec,
+  const flat::Ptrs<4> in{{static_cast<const float*>(g), static_cast<const float*>(m),
+                          static_cast<const float*>(v), static_cast<const float*>(g_meta)}};
+  adam_adapt_kernel<<<blocks, flat::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, static_cast<const float*>(sched), static_cast<float*>(out),
+      static_cast<float*>(partial), n, flat::all_aligned(in, out),
       Coef{b1, omb1, b2, omb2, eps});
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 """SAMA training CLI of the port, on the MetaLearner facade:
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch bert-base \
+    PYTHONPATH=src python -m repro_torch.launch.train [--arch gemma3-1b] \
         [--smoke] [--steps 50] [--batch 8] [--seq 64] [--unroll 2] \
         [--method sama] [--device cuda]
 
@@ -10,9 +10,10 @@ data-optimization BilevelSpec with MetaWeightNet reweighting ->
 line of metrics per logged step, as ``repro.launch.train`` does; the
 metrics are read once per log, in one device-to-host copy. The weights
 and the data are random, from ``--seed``. It runs on the card unless
-``--device cpu`` is given. (The per-example LM loss of a dense model at
-its full vocabulary takes the ``weighted_ce`` kernel, which is not ported
-yet; its smoke config, with 512 tokens, runs.)
+``--device cpu`` is given (use it with ``--smoke`` on the CPU). The
+default arch is gemma3-1b, as in the JAX CLI: its per-sequence LM loss
+over 262,144 tokens takes the ``weighted_ce`` kernels; ``bert-base``
+trains the encoder classifier.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def make_batch_fn(cfg, seq: int, device, rng: np.random.Generator):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="bert-base")
+    ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

@@ -5,9 +5,9 @@ forward, its per-example losses and decode on one device, after
 The per-example adapters return what SAMA's data reweighting consumes: the
 per-sequence mean token CE of an LM (``per_example``) or the per-sample CE
 of a classifier (``classifier_per_example``), each with its predictive
-entropy. At ``CE_VOCAB_THRESHOLD`` classes and above the CE takes the
-``weighted_ce`` kernel's route (``core.problems.vocab_cross_entropy``),
-which on a CUDA tensor raises until that kernel is ported.
+entropy. At ``CE_VOCAB_THRESHOLD`` classes and above (or with
+``use_ce_kernel``) the CE takes the ``weighted_ce`` kernels
+(``core.problems.vocab_cross_entropy``).
 """
 
 from __future__ import annotations
@@ -26,11 +26,14 @@ from repro_torch.models import transformer as tf
 Tree = Any
 
 
-def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                        use_kernel: bool = False) -> torch.Tensor:
     """logits (B, S, V) f32, targets (B, S) int: per-token CE (B, S). At
-    V >= ``CE_VOCAB_THRESHOLD`` it routes through ``weighted_ce`` (f32
-    result); below, a log-softmax in the logits' dtype."""
-    if logits.shape[-1] >= dispatch.CE_VOCAB_THRESHOLD:
+    V >= ``CE_VOCAB_THRESHOLD``, or for any V with ``use_kernel=True``, it
+    routes through ``weighted_ce`` (f32 result); below, a log-softmax in
+    the logits' dtype. (The JAX package's vocab-sharded form comes with the
+    distribution slice.)"""
+    if use_kernel or logits.shape[-1] >= dispatch.CE_VOCAB_THRESHOLD:
         return vocab_cross_entropy(logits, targets)
     logp = F.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
@@ -39,10 +42,12 @@ def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Te
 @dataclasses.dataclass(eq=False)
 class Model:
     """``device`` defaults to ``"cuda"`` and raises there without a card;
-    pass ``device="cpu"`` to run on the CPU."""
+    pass ``device="cpu"`` to run on the CPU. ``use_ce_kernel`` sends the LM
+    losses' CE through ``weighted_ce`` at any vocabulary size."""
 
     cfg: Any
     device: Union[str, torch.device] = "cuda"
+    use_ce_kernel: bool = False
 
     def __post_init__(self):
         self.device = cm.resolve_device(self.device)
@@ -68,13 +73,13 @@ class Model:
     def lm_loss(self, params, batch) -> torch.Tensor:
         """Next-token LM loss (scalar) + aux. batch: tokens (B, S)."""
         logits, aux = self.forward(params, batch)
-        ce = token_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+        ce = token_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:], self.use_ce_kernel)
         return torch.mean(ce) + aux
 
     def per_example(self, params, batch) -> PerExample:
         """Per-sequence loss for data-optimization meta learning."""
         logits, _ = self.forward(params, batch)
-        ce = token_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+        ce = token_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:], self.use_ce_kernel)
         loss = torch.mean(ce, dim=-1)  # (B,)
         logp = F.log_softmax(logits[:, -1].float(), dim=-1)
         entropy = -torch.sum(torch.exp(logp) * logp, dim=-1)

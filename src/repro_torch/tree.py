@@ -58,3 +58,16 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return tree_unflatten(paths, [fn(*xs) for xs in zip(leaves, *others)])
 
 
+def tree_flatten_up_to(paths: Sequence[Tuple[str, ...]], tree: Tree) -> List[Any]:
+    """The subtrees of ``tree`` at ``paths`` (the key paths of a shallower
+    tree): ``treedef.flatten_up_to``, for a state whose leaves sit one
+    level deeper than the parameters, as Adafactor's ``{"r", "c"}`` and
+    ``{"v"}`` statistics do."""
+    out = []
+    for path in paths:
+        node = tree
+        for key in path:
+            node = node[key]
+        out.append(node)
+    return out
+

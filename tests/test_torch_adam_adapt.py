@@ -72,10 +72,15 @@ def test_cpu_tensors_take_the_plain_version():
     ("adamw", {"weight_decay": 0.05}),
     ("sgd", {"weight_decay": 0.01}),
     ("momentum", {"beta": 0.8}),
+    ("rmsprop", {"rho": 0.9}),
+    ("lion", {"weight_decay": 0.1}),
+    ("adafactor", {"weight_decay": 0.01}),
 ])
 def test_optimizer_trajectory_matches_jax(name, kwargs):
     """Five steps of update + apply_updates from one start, with the
-    adaptation diagonal and the fused product checked at every state."""
+    adaptation diagonal and the fused product checked at every state. The
+    2-D leaf ``w`` and the 1-D leaf ``b`` give Adafactor's two second-moment
+    forms, ``{"r", "c"}`` and ``{"v"}``."""
     rng = np.random.default_rng(5)
     params = {"w": rng.standard_normal((7, 5)).astype(np.float32),
               "b": rng.standard_normal(5).astype(np.float32)}
@@ -107,9 +112,14 @@ def test_optimizer_trajectory_matches_jax(name, kwargs):
         assert tst.count.dtype == torch.int32
         for k in params:
             np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), **TRAJ)
-            for jt, tt in ((jst.mu, tst.mu), (jst.nu, tst.nu)):
-                if jt is not None:
-                    np.testing.assert_allclose(tt[k].numpy(), np.asarray(jt[k]), **TRAJ)
+        for jt, tt in ((jst.mu, tst.mu), (jst.nu, tst.nu)):
+            assert (jt is None) == (tt is None)
+            if jt is not None:
+                t_leaves, t_paths = tree.tree_flatten(tt)
+                j_leaves, j_paths = tree.tree_flatten(jax.tree_util.tree_map(np.asarray, jt))
+                assert t_paths == j_paths
+                for a, b in zip(t_leaves, j_leaves):
+                    np.testing.assert_allclose(a.numpy(), b, **TRAJ)
 
 
 def test_adam_bias_corrections_finite_in_bf16():
@@ -141,6 +151,7 @@ def test_schedules_match_jax(make):
                                    rtol=1e-6, atol=1e-12)
 
 
-def test_unported_optimizers_are_refused():
-    with pytest.raises(ValueError, match="not yet ported"):
-        optim.get_optimizer("lion", 1e-3)
+def test_unknown_optimizers_are_refused():
+    with pytest.raises(ValueError, match="unknown optimizer 'adagrad'"):
+        optim.get_optimizer("adagrad", 1e-3)
+    assert sorted(optim.optimizers._FACTORIES) == sorted(joptim.optimizers._FACTORIES)

@@ -131,8 +131,9 @@ def test_cli_without_device_raises_without_a_card(monkeypatch, capsys):
 def test_kernel_build_names_by_content_and_needs_nvcc(monkeypatch, tmp_path):
     from repro_torch.kernels import build
 
-    assert sorted(build.SOURCES) == ["adam_adapt", "flash_attn_bwd", "flash_attn_fwd",
-                                     "flash_decode"]
+    assert sorted(build.SOURCES) == ["adafactor_adapt", "adam_adapt", "flash_attn_bwd",
+                                     "flash_attn_fwd", "flash_decode", "lion_adapt",
+                                     "weighted_ce"]
     source = build.SOURCES["flash_decode"]
     first = build._target(source)
     assert first.parent == build.BUILD_DIR and first.name.startswith("libflash_decode-")
@@ -147,7 +148,7 @@ def test_kernel_build_names_by_content_and_needs_nvcc(monkeypatch, tmp_path):
     assert build._target(source) != first
     monkeypatch.undo()
     with pytest.raises(ValueError, match="no kernel source"):
-        build.build("weighted_ce")
+        build.build("no_such_kernel")
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setattr(build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -1,9 +1,10 @@
 """The port's training kernels against their plain PyTorch versions on the
 card: the flash-attention forward and its dq and dk/dv backward kernels
-(through autograd), and the Adam adaptation product; then one SAMA meta
-step of the bert-base smoke model through the kernels, against the same
-step with every kernel forced to its plain version, with each kernel's
-launches counted.
+(through autograd), the blockwise cross-entropy forward and backward, and
+the Adam, Lion and Adafactor adaptation products; then SAMA meta steps of
+the bert-base and gemma3 smoke models through the kernels, against the
+same steps with every kernel forced to its plain version, with each
+kernel's launches counted.
 
 Every test here needs a CUDA card (``-m cuda``) and skips without one:
 the CUDA kernels have no CPU mode. This file imports no JAX, so it runs on
@@ -12,8 +13,9 @@ a machine with only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: flash forward 1e-5 and VJP 5e-5 in f32, 2e-2 in bf16
-(tests/test_flash_attention.py); adam_adapt out rtol 1e-5 / atol 1e-7 and
-sum of squares rtol 1e-4 (tests/test_kernels.py).
+(tests/test_flash_attention.py); the adaptation products out rtol 1e-5 /
+atol 1e-7 and sum of squares rtol 1e-4 (tests/test_kernels.py);
+weighted_ce as stated at its test.
 """
 
 import numpy as np
@@ -135,16 +137,112 @@ def test_adam_adapt_kernel_matches_plain(dev, n, t):
     torch.testing.assert_close(out1, ref[1:], rtol=1e-5, atol=1e-7)
 
 
-def test_weighted_ce_route_raises_on_the_card(dev):
-    """At CE_VOCAB_THRESHOLD classes the per-example CE takes the
-    weighted_ce kernel, not ported yet: a CUDA tensor raises instead of
-    computing the plain CE on the card."""
-    from repro_torch.core import problems
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,sliced", [((37, 5000), False), ((3, 40, 8192), True),
+                                          ((2, 4096), False), ((5, 4097), False)])
+def test_weighted_ce_kernels_match_plain(dev, shape, sliced, dtype):
+    """Forward (ce, lse) and backward (dlogits) through autograd, the
+    backward kernel's gradient in the logits' dtype. ``sliced`` feeds the
+    LM loss's logits[:, :-1] view; V 4097 leaves rows unaligned and a
+    ragged end. f32 within 1e-5 (1 + |ref|) forward and 1e-6 + 1e-5 |ref|
+    backward; bf16 gradients within half an ulp of the plain version in
+    f32 (plus the f32 tolerance)."""
+    from repro_torch.kernels import weighted_ce
 
-    logits = torch.zeros((2, dispatch.CE_VOCAB_THRESHOLD), device=dev)
-    y = torch.zeros(2, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="weighted_ce"):
-        problems.softmax_per_example(lambda th, x: x)(None, {"x": logits, "y": y})
+    rng = np.random.default_rng(sum(shape))
+    x = (_randn(rng, shape, torch.float32, dev) * 3).to(dtype)
+    t = torch.from_numpy(rng.integers(0, shape[-1], shape[:-1]).astype(np.int64)).to(dev)
+    if sliced:
+        x_in, t_in = x[:, :-1], t[:, 1:]
+    else:
+        x_in, t_in = x, t
+    g = _randn(rng, t_in.shape, torch.float32, dev)
+
+    def run(backend):
+        leaf = x.clone().requires_grad_(True)
+        xi = leaf[:, :-1] if sliced else leaf
+        ce = weighted_ce.cross_entropy(xi, t_in, backend=backend)
+        (ce * g).sum().backward()
+        return ce.detach(), leaf.grad
+
+    dispatch.reset_launches()
+    ce, grad = run(None)
+    torch.cuda.synchronize()
+    assert dispatch.launches(weighted_ce.FWD) == dispatch.launches(weighted_ce.BWD) == 1
+    ce_ref, grad_ref = run("plain")
+    assert ce.dtype == torch.float32 and grad.dtype == dtype
+    assert ((ce - ce_ref).abs() <= 1e-5 * (1 + ce_ref.abs())).all()
+    f32 = weighted_ce.cross_entropy_bwd_plain(
+        x_in.float().reshape(-1, shape[-1]), t_in.reshape(-1),
+        weighted_ce.cross_entropy_fwd_plain(x_in.float().reshape(-1, shape[-1]),
+                                            t_in.reshape(-1))[1], g.reshape(-1))
+    got = grad[:, :-1] if sliced else grad
+    rtol = 1e-5 + (torch.finfo(dtype).eps / 2 if dtype != torch.float32 else 0.0)
+    err = (got.float().reshape(-1, shape[-1]) - f32).abs()
+    assert (err <= 1e-6 + rtol * f32.abs()).all()
+    if sliced:
+        assert torch.all(grad[:, -1] == 0)
+
+
+@pytest.mark.parametrize("n", [23_440_896, 1_000_003])
+def test_lion_and_adafactor_kernels_match_plain(dev, n):
+    from repro_torch.kernels import adafactor_adapt, lion_adapt
+
+    rng = np.random.default_rng(n % 997)
+    g, m, gm = (_randn(rng, (n,), torch.float32, dev) * 1e-2 for _ in range(3))
+    vhat = _randn(rng, (n,), torch.float32, dev).square() * 1e-4
+    lr = torch.tensor(1e-3, device=dev)
+    dispatch.reset_launches()
+    for fn, args, kw in ((lion_adapt.lion_adapt, (g, m, gm), dict(lr=lr, b1=0.9, delta=1e-3)),
+                         (adafactor_adapt.adafactor_adapt, (vhat, gm), dict(lr=lr, eps=1e-8))):
+        out, ss = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ref, ref_ss = fn(*args, backend="plain", **kw)
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(ss, ref_ss, rtol=1e-4, atol=0)
+        # unaligned views take the kernel's scalar loop
+        out1, _ = fn(*(a[1:] for a in args), **kw)
+        torch.testing.assert_close(out1, ref[1:], rtol=1e-5, atol=1e-7)
+    assert dispatch.launches("lion_adapt") == dispatch.launches("adafactor_adapt") == 2
+
+
+def test_gemma_smoke_meta_step_goes_through_weighted_ce(dev):
+    """A SAMA meta step of the gemma3 smoke model at V 8192 (above
+    CE_VOCAB_THRESHOLD): weighted_ce forward K + 3 = 5 (K base steps, the
+    meta pass, two central-difference passes) and backward K + 1 = 3 (the
+    CD passes record no graph), and the step within the f32 tolerances of
+    the same step with every kernel plain (base Adam eps 1e-3, warm rows:
+    ROADMAP queue 3)."""
+    from repro_torch import api, configs, optim, tree
+    from repro_torch.core import problems
+    from repro_torch.kernels import weighted_ce
+    from repro_torch.models import Model
+
+    cfg = configs.get_smoke_config("gemma3-1b").replace(vocab_size=8192)
+    model = Model(cfg, device=dev)
+    K, B, S = 2, 4, 64
+    r = np.random.default_rng(0)
+    toks = r.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    perms = np.stack([r.permutation(B) for _ in range(K)])
+    base = {"tokens": torch.from_numpy(toks[perms]).to(dev)}
+    meta = {"tokens": torch.from_numpy(toks).to(dev)}
+    learner = api.MetaLearner(problems.make_data_optimization_spec(model.per_example),
+                              base_opt=optim.adam(1e-3, eps=1e-3), meta_opt="adam",
+                              meta_lr=1e-3, method="sama", unroll_steps=K)
+    state = learner.init(model.init(0), problems.init_data_optimization_lam(1, device=dev))
+    dispatch.reset_launches()
+    got_s, got = learner.step_fn(state, base, meta)
+    assert dispatch.launches(weighted_ce.FWD) == K + 3
+    assert dispatch.launches(weighted_ce.BWD) == K + 1
+    with dispatch.plain_everywhere():
+        ref_s, ref = learner.step_fn(state, base, meta)
+    assert dispatch.launches(weighted_ce.FWD) == K + 3  # none added
+    for key, rtol in (("base_loss", 1e-5), ("meta_loss", 1e-5), ("eps", 2e-3),
+                      ("hypergrad_norm", 2e-3)):
+        a, b = float(got[key]), float(ref[key])
+        assert abs(a - b) <= rtol * abs(b) + 1e-7, (key, a, b)
+    for x, y, y0 in zip(*(tree.tree_leaves(st.theta) for st in (got_s, ref_s, state))):
+        assert (x - y).abs().max().item() <= 1e-6 + 0.05 * (y - y0).abs().max().item()
 
 
 def test_adam_adapt_wrapper_rejects_bf16_and_strided(dev):

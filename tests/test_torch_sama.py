@@ -11,7 +11,8 @@ state carried across by ``repro_torch.convert``:
   without remat in the port;
 
 plus the encoder's forward and per-example losses, the dense forward, the
-parameter trees, the ``weighted_ce`` route and the CPU train smoke.
+parameter trees, the ``weighted_ce`` route and the CPU train smoke. The
+quickstart problem also runs with Lion and Adafactor at the base level.
 
 Tolerances. Losses: 1e-5 relative (f32, the same ops summed in another
 order). The hypergradient is a central difference, -(g+ - g-) / (2 eps)
@@ -116,13 +117,17 @@ def _quickstart_data():
     ("sama", {}),
     ("sama_na", {}),
     ("sama", {"adapt_clip": 10.0, "alpha": 0.5, "base_nudge": False}),
+    ("sama", {"base_opt": "lion"}),
+    ("sama", {"base_opt": "adafactor"}),
 ])
 def test_quickstart_matches_jax_step_by_step(method, knobs):
     """``adapt_clip`` takes the unfused path: the adaptation diagonal,
-    clipped, then the product and a separate norm."""
+    clipped, then the product and a separate norm. The Lion and Adafactor
+    bases take their fused adaptation products (the 2-D weight is
+    Adafactor's factored leaf, the bias its full-moment one)."""
     d, batches = _quickstart_data()
-    kw = dict(base_opt="adam", base_lr=1e-2, meta_opt="adam", meta_lr=1e-2,
-              method=method, unroll_steps=2, **knobs)
+    kw = {**dict(base_opt="adam", base_lr=1e-2, meta_opt="adam", meta_lr=1e-2,
+                 method=method, unroll_steps=2), **knobs}
     jspec = jproblems.make_data_optimization_spec(
         jproblems.softmax_per_example(lambda th, x: x @ th["w"] + th["b"]), reweight=True)
     tspec = problems.make_data_optimization_spec(
@@ -314,7 +319,10 @@ def test_config_and_parameter_tree_match_jax():
 def test_per_example_ce_route(classes, monkeypatch):
     """At CE_VOCAB_THRESHOLD classes and above the CE takes the
     weighted_ce route: the plain per-row CE on the CPU (equal to the
-    log-softmax form), a NotImplementedError on a CUDA tensor."""
+    log-softmax form), the forward kernel's wrapper on a CUDA tensor
+    (stubbed here by the plain version, counting its calls)."""
+    from repro_torch.kernels import weighted_ce
+
     rng = np.random.default_rng(classes)
     logits = torch.from_numpy(rng.standard_normal((5, classes)).astype(np.float32))
     y = torch.from_numpy(rng.integers(0, classes, 5).astype(np.int32))
@@ -322,9 +330,17 @@ def test_per_example_ce_route(classes, monkeypatch):
     want = -torch.log_softmax(logits, -1)[torch.arange(5), y.long()]
     torch.testing.assert_close(pe.loss, want, rtol=1e-5, atol=1e-6)
     if classes >= dispatch.CE_VOCAB_THRESHOLD:
+        calls = []
+
+        def fake_fwd(x, t):
+            calls.append(tuple(x.shape))
+            return weighted_ce.cross_entropy_fwd_plain(x, t)
+
         monkeypatch.setattr(dispatch, "route", lambda name, x, backend=None: dispatch.CUDA)
-        with pytest.raises(NotImplementedError, match="weighted_ce"):
-            problems.softmax_per_example(lambda th, x: x)(None, {"x": logits, "y": y})
+        monkeypatch.setattr(weighted_ce, "_fwd_cuda", fake_fwd)
+        pe = problems.softmax_per_example(lambda th, x: x)(None, {"x": logits, "y": y})
+        assert calls == [(5, classes)]
+        torch.testing.assert_close(pe.loss, want, rtol=1e-5, atol=1e-6)
 
 
 def test_train_cli_smoke_on_cpu(capsys):
@@ -332,6 +348,20 @@ def test_train_cli_smoke_on_cpu(capsys):
 
     train.main(["--arch", "bert-base", "--smoke", "--device", "cpu", "--steps", "2",
                 "--log-every", "1", "--batch", "4", "--seq", "16"])
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["step"] for r in rows] == [0, 1]
+    for r in rows:
+        for key in ("base_loss", "meta_loss", "hypergrad_norm", "eps"):
+            assert np.isfinite(r[key]), (key, r)
+
+
+def test_train_cli_default_arch_smoke_on_cpu(capsys):
+    """The CLI's default arch is gemma3-1b, as in the JAX CLI: its smoke
+    config trains the per-sequence LM loss on the CPU."""
+    from repro_torch.launch import train
+
+    train.main(["--smoke", "--device", "cpu", "--steps", "2", "--log-every", "1",
+                "--batch", "2", "--seq", "16"])
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["step"] for r in rows] == [0, 1]
     for r in rows:
