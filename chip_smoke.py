@@ -10,8 +10,11 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
 2. build: compiles every kernel source under ``src/repro_torch/kernels/
    csrc/`` (``flash_decode``, ``flash_attn_fwd``, ``flash_attn_bwd``,
    ``adam_adapt``, ``weighted_ce``, ``lion_adapt``, ``adafactor_adapt``),
-   one nvcc per source, all at once; prints each build's seconds and the
-   ``-Xptxas -v`` register, spill and shared-memory lines.
+   one nvcc per source, all at once; prints each build's seconds, the
+   ``-Xptxas -v`` register, spill and shared-memory lines and, for the two
+   training attention libraries, each kernel's count of tensor-core
+   instructions (HMMA or HGMMA) in ``cuobjdump -sass``: the bf16 and f16
+   forward and dq kernels must have some.
 3. decode kernel: ``flash_decode`` against its plain PyTorch version on
    the card at gemma3-1b shapes (B in {1, 4, 8}, KV=1, G=4, Dh=256, T in
    {16, 128, 1024, 2048}, window on and off, softcap 0 and 50, split
@@ -21,11 +24,13 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    (``scaled_dot_product_attention``) times over one pass of 26 layers at
    the serving shape.
 4. training kernels: the flash-attention forward and its dq and dk/dv
-   backward kernels through autograd, at bert-base's shape and at a
+   backward kernels through autograd, at bert-base's shape, at a
    gemma-like one (G 4, KV 1, Dh 256, window, softcap, causal, ragged S
-   and T), f32 (1e-5 forward, 5e-5 + 1e-4 relative gradients) and bf16
-   (2e-2 + 2e-2 relative), the bf16 results also within half an ulp (plus
-   the f32 tolerance) of the plain version in f32 on the same inputs;
+   and T), at gemma3-1b's full local and global layers (B 4, S = T 1024)
+   and with whole key and query tiles of padding, f32 (1e-5 forward, 5e-5
+   + 1e-4 relative gradients) and bf16 (2e-2 + 2e-2 relative), the bf16
+   results also within half an ulp (plus the f32 tolerance) of the plain
+   version in f32 on the same inputs;
    ``adam_adapt`` at the embedding's 23,440,896 elements, the stacked MLP
    weights' 28,311,552 and a ragged size (rtol 1e-5, sum of squares 1e-4);
    ``weighted_ce`` forward and backward at gemma3-1b's LM loss (the (4,
@@ -35,9 +40,12 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    ``lion_adapt`` and ``adafactor_adapt`` at bert-base's embedding,
    gemma3-1b's embedding (301,989,888) and a ragged size (as
    ``adam_adapt``); then each kernel's time (per bert-base layer at B 48,
-   S 128, bf16; the CE at gemma3-1b's shape in f32; the adaptation
-   products at 23.4 M elements) beside its plain version's, the library
-   call's and the bound.
+   S 128, bf16; the attention kernels also per gemma3-1b global and local
+   layer over one pass of its 26 layers, with SDPA's time under each
+   backend that takes the layer and the tiles the bf16 kernels visit; the
+   CE at gemma3-1b's shape in f32; the adaptation products at 23.4 M
+   elements) beside its plain version's, the library call's and the
+   bound (for attention, from the valid (query, key) pairs).
 5. serve f32: gemma3-1b at full width and depth in f32, random weights
    from a seed, 8 requests of 300-900 prompt tokens through the
    continuous-batching executor; every status ``ok`` and the tokens equal
@@ -78,6 +86,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -146,6 +155,37 @@ def phase_device():
     return smi
 
 
+#: the libraries whose SASS is searched for tensor-core instructions, and
+#: the kernel in each whose every instantiation (bf16 and f16, each head
+#: dim) must hold some
+MMA_KERNELS = {"flash_attn_fwd": "fwd_tc_kernel", "flash_attn_bwd": "dq_tc_kernel"}
+
+
+def _cuda_tool(name):
+    found = shutil.which(name) or os.path.join("/usr/local/cuda/bin", name)
+    if not os.path.exists(found):
+        raise RuntimeError(f"{name} not found: the build phase reads the kernels' SASS with it")
+    return found
+
+
+def _sass_mma_counts(path):
+    """{kernel: number of HMMA / HGMMA instructions} in a library's SASS
+    (``cuobjdump -sass``), the names demangled by ``cu++filt``."""
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        text = line.strip()
+        if text.startswith("Function :"):
+            fn = text.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in text or "HGMMA" in text):
+            counts[fn] += 1
+    names = subprocess.run([_cuda_tool("cu++filt")], input="\n".join(counts), capture_output=True,
+                           text=True, timeout=60, check=True).stdout.splitlines()
+    return dict(zip(names, counts.values()))
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -162,6 +202,18 @@ def phase_build():
                 kernel = line.split("'")[1][:90] if "'" in line else line.strip()
             elif "registers" in line or "spill" in line or "error" in line:
                 log(f"  ptxas: {kernel}: {line.strip()}")
+        if name in MMA_KERNELS:
+            counts = _sass_mma_counts(path)
+            for fn, n in counts.items():
+                log(f"  sass: {name}: HMMA {n}: {fn[:120]}")
+            tc = {fn: n for fn, n in counts.items() if MMA_KERNELS[name] in fn}
+            for dtype in ("__nv_bfloat16", "__half"):
+                if not any(f"<{dtype}," in fn for fn in tc):
+                    raise AssertionError(f"{name}: no {MMA_KERNELS[name]}<{dtype}, ...> in its "
+                                         "SASS")
+            for fn, n in tc.items():
+                if n == 0:
+                    raise AssertionError(f"{fn}: no tensor-core instruction in its SASS")
     log(f"build_seconds: {secs:.2f} (all sources at once)")
     return per
 
@@ -472,12 +524,20 @@ def profile_step(model, params, scfg, prompts, out_dir):
 # phase 4: the training kernels
 # ---------------------------------------------------------------------------
 
-#: (name, B, S, T, KV, G, Dh, causal, window, softcap): bert-base's layer
-#: and a gemma-like training shape with ragged S and T
+#: (name, B, S, T, KV, G, Dh, causal, window, softcap, padded): bert-base's
+#: layer, a gemma-like training shape with ragged S and T, gemma3-1b's full
+#: local and global layers, and padding (keys 64-191 and lane 1's queries
+#: 32-95 at position -1: whole key and query tiles of both kernels)
 TRAIN_SHAPES = [
-    ("bert-base", 48, 128, 128, 12, 1, 64, False, 0, 0.0),
-    ("gemma-like", 2, 300, 333, 1, 4, 256, True, 128, 50.0),
+    ("bert-base", 48, 128, 128, 12, 1, 64, False, 0, 0.0, False),
+    ("gemma-like", 2, 300, 333, 1, 4, 256, True, 128, 50.0, False),
+    ("gemma3-1b local", 4, 1024, 1024, 1, 4, 256, True, 512, 0.0, False),
+    ("gemma3-1b global", 4, 1024, 1024, 1, 4, 256, True, 0, 0.0, False),
+    ("padded", 2, 170, 250, 1, 4, 128, True, 0, 0.0, True),
 ]
+#: the plain forward drops padded keys on its chunked path only (make_mask
+#: keeps them, as the JAX reference's does): the padded shape runs it chunked
+PADDED_CHUNK = 64
 #: (atol, rtol) per dtype: forward, gradients (tests/test_flash_attention.py)
 ATTN_TOL = {torch.float32: ((1e-5, 0.0), (5e-5, 1e-4)),
             torch.bfloat16: ((2e-2, 2e-2), (2e-2, 2e-2))}
@@ -488,11 +548,15 @@ def _randn(rng, shape, dtype, dev):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
 
-def _attn_inputs(rng, dev, dtype, b, s, t, kv, g, dh):
+def _attn_inputs(rng, dev, dtype, b, s, t, kv, g, dh, padded=False):
     q, cot = (_randn(rng, (b, s, kv * g, dh), dtype, dev) for _ in range(2))
     k, v = (_randn(rng, (b, t, kv, dh), dtype, dev) for _ in range(2))
-    q_pos = (torch.arange(s, device=dev, dtype=torch.int32) + (t - s))[None].expand(b, s)
-    return q, k, v, cot, q_pos.contiguous(), torch.arange(t, device=dev, dtype=torch.int32)
+    q_pos = (torch.arange(s, device=dev, dtype=torch.int32) + (t - s))[None].repeat(b, 1)
+    kv_pos = torch.arange(t, device=dev, dtype=torch.int32)
+    if padded:
+        kv_pos[64:192] = -1
+        q_pos[1, 32:96] = -1
+    return q, k, v, cot, q_pos, kv_pos
 
 
 def _excess(got, ref, atol, rtol):
@@ -508,15 +572,17 @@ def phase_train_kernel_check(dev):
     names = (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV)
     worst = {n: {torch.float32: 0.0, torch.bfloat16: 0.0} for n in names}
     share_vs_f32 = {n: 0.0 for n in names}
-    for name, b, s, t, kv, g, dh, causal, window, softcap in TRAIN_SHAPES:
+    for name, b, s, t, kv, g, dh, causal, window, softcap, padded in TRAIN_SHAPES:
         kw = dict(softcap=softcap, window=window, causal=causal)
+        plain_kw = dict(kw, chunk=PADDED_CHUNK if padded else 0)
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, cot, q_pos, kv_pos = _attn_inputs(rng, dev, dtype, b, s, t, kv, g, dh)
+            q, k, v, cot, q_pos, kv_pos = _attn_inputs(rng, dev, dtype, b, s, t, kv, g, dh,
+                                                       padded)
 
             def run(backend):
                 leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
                 out = flash_attn.flash_attention(*leaves, q_pos, kv_pos, True, backend=backend,
-                                                 **kw)
+                                                 **plain_kw)
                 (out.float() * cot.float()).sum().backward()
                 return [out.detach()] + [x.grad for x in leaves]
 
@@ -533,6 +599,7 @@ def phase_train_kernel_check(dev):
                                          f"the tolerance (atol {atol}, rtol {rtol})")
                 worst[kname][dtype] = max(worst[kname][dtype],
                                           (a.float() - p.float()).abs().max().item())
+            del got, plain
             if dtype == torch.bfloat16:
                 # the bf16 kernels against the plain version in f32 on the
                 # same inputs: each result rounded once from f32
@@ -540,7 +607,7 @@ def phase_train_kernel_check(dev):
                 delta = torch.sum(cot.float() * out.float(), dim=-1)
                 grads = flash_attn._bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, cot, **kw)
                 ref_out, _ = flash_attn.flash_attention_fwd_plain(
-                    q.float(), k.float(), v.float(), q_pos, kv_pos, **kw)
+                    q.float(), k.float(), v.float(), q_pos, kv_pos, **plain_kw)
                 ref_grads = flash_attn.flash_attention_bwd_plain(
                     q.float(), k.float(), v.float(), q_pos, kv_pos, lse, delta, cot.float(),
                     **kw)
@@ -553,11 +620,15 @@ def phase_train_kernel_check(dev):
                         raise AssertionError(f"{kname} bf16 vs plain in f32 at {name}: "
                                              f"{share:.3f} of the half-ulp bound")
                     share_vs_f32[kname] = max(share_vs_f32[kname], share)
+                del out, grads, ref_out, ref_grads
+            torch.cuda.empty_cache()
     for kname in names:
-        log(f"kernel_check: {kname} vs plain, max_err_f32={worst[kname][torch.float32]:.3e} "
+        log(f"kernel_check: {kname} vs plain at {', '.join(x[0] for x in TRAIN_SHAPES)}, "
+            f"max_err_f32={worst[kname][torch.float32]:.3e} "
             f"max_err_bf16={worst[kname][torch.bfloat16]:.3e}; bf16 vs plain in f32 within "
             f"{share_vs_f32[kname]:.3f} of the half-ulp bound")
 
+    rng = np.random.default_rng(SEED + 17)  # its own inputs, whatever the shapes above draw
     adam_worst = 0.0
     for n in ADAM_SIZES:
         for t in (1, 7):
@@ -586,6 +657,142 @@ def _bound(nbytes, ops, dtype):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def _attn_layers(rng, dev, b, s, kv, g, dh, windows, softcap=0.0, causal=True):
+    """One layer's own bf16 inputs at (B, S = T, KV, G, Dh) per entry of
+    ``windows`` (its window), each with the forward's lse and delta and
+    room for the gradients."""
+    from repro_torch.kernels import flash_attn
+
+    layers = []
+    for window in windows:
+        q, k, v, cot, q_pos, kv_pos = _attn_inputs(rng, dev, torch.bfloat16, b, s, s, kv, g, dh)
+        kw = dict(softcap=softcap, window=window, causal=causal)
+        out, lse = flash_attn._fwd_cuda(q, k, v, q_pos, kv_pos, **kw)
+        delta = torch.sum(cot.float() * out.float(), dim=-1)
+        layers.append(dict(q=q, k=k, v=v, cot=cot, q_pos=q_pos, kv_pos=kv_pos, lse=lse,
+                           delta=delta, kw=kw, dq=torch.empty_like(q), dk=torch.empty_like(k),
+                           dv=torch.empty_like(v)))
+    return layers
+
+
+def _attn_runs(dev, layers):
+    """One pass over ``layers`` of: the forward (through its wrapper), dq
+    and dk/dv (each through its C entry, so one kernel alone), and the
+    plain forward and backward."""
+    from repro_torch.kernels import flash_attn
+
+    dq_fn = flash_attn._train_fn("flash_attn_bwd", "flash_attn_dq_launch")
+    dkv_fn = flash_attn._train_fn("flash_attn_bwd", "flash_attn_dkv_launch")
+
+    def c_args(x):
+        return (x["q"].data_ptr(), x["k"].data_ptr(), x["v"].data_ptr(), x["cot"].data_ptr(),
+                x["q_pos"].data_ptr(), x["kv_pos"].data_ptr(), x["lse"].data_ptr(),
+                x["delta"].data_ptr())
+
+    def common(x):  # the stream is read at each call: under capture it is the graph's
+        b, s, t, kv, g, dh = flash_attn._dims(x["q"], x["k"])
+        kw = x["kw"]
+        return (b, s, t, kv, g, dh, int(kw["causal"]), kw["window"], kw["softcap"],
+                1.0 / math.sqrt(dh), 1, torch.cuda.current_stream(dev).cuda_stream)
+
+    def checked(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+    def fwd():
+        for x in layers:
+            flash_attn._fwd_cuda(x["q"], x["k"], x["v"], x["q_pos"], x["kv_pos"], **x["kw"])
+
+    def dq():
+        for x in layers:
+            checked(dq_fn(*c_args(x), x["dq"].data_ptr(), *common(x)), "dq")
+
+    def dkv():
+        for x in layers:
+            checked(dkv_fn(*c_args(x), x["dk"].data_ptr(), x["dv"].data_ptr(), *common(x)), "dkv")
+
+    def plain_fwd():
+        for x in layers:
+            flash_attn.flash_attention_fwd_plain(x["q"], x["k"], x["v"], x["q_pos"], x["kv_pos"],
+                                                 **x["kw"])
+
+    def plain_bwd():
+        for x in layers:
+            flash_attn.flash_attention_bwd_plain(x["q"], x["k"], x["v"], x["q_pos"], x["kv_pos"],
+                                                 x["lse"], x["delta"], x["cot"], **x["kw"])
+
+    return {"fwd": fwd, "dq": dq, "dkv": dkv, "plain_fwd": plain_fwd, "plain_bwd": plain_bwd}
+
+
+def _attn_bounds(layers):
+    """Per-call bounds of the three kernels over ``layers`` (their mean):
+    each input read once and each output written once, and the operations
+    of the valid (query, key) pairs these positions give (two products in
+    the forward, three in dq, four in dk/dv, a multiply and an add each)."""
+    from repro_torch.kernels import flash_attn
+
+    nbytes = {"fwd": 0, "dq": 0, "dkv": 0}
+    ops = {"fwd": 0, "dq": 0, "dkv": 0}
+    for x in layers:
+        b, s, t, kv, g, dh = flash_attn._dims(x["q"], x["k"])
+        h, item = kv * g, x["q"].element_size()
+        act = b * s * h * dh * item           # q, out, dO, dq: (B, S, H, Dh)
+        kvb = b * t * kv * dh * item          # k, v, dk, dv: (B, T, KV, Dh)
+        rows = b * s * h * 4                  # lse or delta, f32
+        pos = b * s * 4 + t * 4
+        kw = x["kw"]
+        pairs = h * int(flash_attn._tile_valid(x["q_pos"], x["kv_pos"], causal=kw["causal"],
+                                               window=kw["window"]).sum())
+        for key, nb, flops in (("fwd", act * 2 + kvb * 2 + rows + pos, 4 * pairs * dh),
+                               ("dq", act * 3 + kvb * 2 + rows * 2 + pos, 6 * pairs * dh),
+                               ("dkv", act * 2 + kvb * 4 + rows * 2 + pos, 8 * pairs * dh)):
+            nbytes[key] += nb
+            ops[key] += flops
+    n = len(layers)
+    return {key: _bound(nbytes[key] / n, ops[key] / n, torch.bfloat16) for key in nbytes}
+
+
+def _log_tiles(layers, where):
+    """The key tiles the bf16 forward and dq visit over ``layers``: each
+    kernel's own walk run alone (``flash_attn.tc_visits``) beside the count
+    of the ``live_tiles`` rule at the tile sizes its library reports, over
+    lanes and KV heads. Fails if the two differ."""
+    from repro_torch.kernels import flash_attn
+
+    for kernel in (flash_attn.FWD, flash_attn.DQ):
+        walk = rule = total = 0
+        for x in layers:
+            _, _, _, kv, g, dh = flash_attn._dims(x["q"], x["k"])
+            bq, bk = flash_attn.tc_tiles(kernel, g, dh)
+            kw = dict(causal=x["kw"]["causal"], window=x["kw"]["window"])
+            live = flash_attn.live_tiles(x["q_pos"], x["kv_pos"], bq, bk, **kw)
+            rule += kv * int(live.sum())
+            total += kv * live.numel()
+            walk += flash_attn.tc_visits(kernel, x["q_pos"], x["kv_pos"], kv, g, dh, **kw)
+        if walk != rule:
+            raise AssertionError(f"{kernel} {where}: its walk visits {walk} key tiles, the "
+                                 f"live_tiles rule keeps {rule}")
+        log(f"tiles: {kernel} {where} ({bq} queries x {bk} keys): the kernel's walk visits "
+            f"{walk} of {total} tiles ({walk / total:.1%}), as the live_tiles rule keeps")
+
+
+def _kernel_time_entries(t, bounds, shape):
+    from repro_torch.kernels import flash_attn
+
+    out = {}
+    for key, name in (("fwd", flash_attn.FWD), ("dq", flash_attn.DQ), ("dkv", flash_attn.DKV)):
+        out[name] = {"ms": t[key], "plain_ms": t["plain_fwd" if key == "fwd" else "plain_bwd"],
+                     "library_ms": t["lib_fwd" if key == "fwd" else "lib_bwd"],
+                     "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "shape": shape}
+    out[flash_attn.FWD]["ms_repeat"] = t["fwd_repeat"]
+    out[flash_attn.DQ]["ms_repeat"] = t["dq_repeat"]
+    # the plain backward and the library backward each compute dq, dk and
+    # dv together: their time stands beside both backward kernels
+    out[flash_attn.DQ]["plain_and_library_cover"] = "dq, dk, dv"
+    out[flash_attn.DKV]["plain_and_library_cover"] = "dq, dk, dv"
+    return out
+
+
 def phase_train_kernel_time(dev, cfg, batch, seq):
     """Per bert-base layer (one pass over cfg.num_layers layers' own inputs,
     so the 50 MB L2 does not hold them), bf16: the forward, dq and dk/dv
@@ -597,57 +804,10 @@ def phase_train_kernel_time(dev, cfg, batch, seq):
     from repro_torch.kernels import adam_adapt, flash_attn
 
     rng = np.random.default_rng(SEED + 11)
-    dtype = torch.bfloat16
     b, s, h, dh = batch, seq, cfg.num_heads, cfg.head_dim
     kv, g, n = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.num_layers
-    kw = dict(softcap=0.0, window=0, causal=False)
-    layers = []
-    for _ in range(n):
-        q, k, v, cot, q_pos, kv_pos = _attn_inputs(rng, dev, dtype, b, s, s, kv, g, dh)
-        out, lse = flash_attn._fwd_cuda(q, k, v, q_pos, kv_pos, **kw)
-        delta = torch.sum(cot.float() * out.float(), dim=-1)
-        layers.append(dict(q=q, k=k, v=v, cot=cot, q_pos=q_pos, kv_pos=kv_pos, lse=lse,
-                           delta=delta, dq=torch.empty_like(q), dk=torch.empty_like(k),
-                           dv=torch.empty_like(v)))
-    dq_fn = flash_attn._train_fn("flash_attn_bwd", "flash_attn_dq_launch")
-    dkv_fn = flash_attn._train_fn("flash_attn_bwd", "flash_attn_dkv_launch")
-
-    def c_args(x):
-        return (x["q"].data_ptr(), x["k"].data_ptr(), x["v"].data_ptr(), x["cot"].data_ptr(),
-                x["q_pos"].data_ptr(), x["kv_pos"].data_ptr(), x["lse"].data_ptr(),
-                x["delta"].data_ptr())
-
-    def common():  # the stream is read at each call: under capture it is the graph's
-        return (b, s, s, kv, g, dh, 0, 0, 0.0, 1.0 / math.sqrt(dh), 1,
-                torch.cuda.current_stream(dev).cuda_stream)
-
-    def checked(err, what):
-        if err != 0:
-            raise RuntimeError(f"{what} launch failed with CUDA error {err}")
-
-    def run_fwd():
-        for x in layers:
-            flash_attn._fwd_cuda(x["q"], x["k"], x["v"], x["q_pos"], x["kv_pos"], **kw)
-
-    def run_dq():
-        for x in layers:
-            checked(dq_fn(*c_args(x), x["dq"].data_ptr(), *common()), "dq")
-
-    def run_dkv():
-        for x in layers:
-            checked(dkv_fn(*c_args(x), x["dk"].data_ptr(), x["dv"].data_ptr(), *common()), "dkv")
-
-    def run_plain_fwd():
-        for x in layers:
-            flash_attn.flash_attention_fwd_plain(x["q"], x["k"], x["v"], x["q_pos"],
-                                                 x["kv_pos"], **kw)
-
-    def run_plain_bwd():
-        for x in layers:
-            flash_attn.flash_attention_bwd_plain(x["q"], x["k"], x["v"], x["q_pos"],
-                                                 x["kv_pos"], x["lse"], x["delta"], x["cot"],
-                                                 **kw)
-
+    layers = _attn_layers(rng, dev, b, s, kv, g, dh, [0] * n, causal=False)
+    runs = _attn_runs(dev, layers)
     lib = []
     for x in layers:
         qt, kt, vt = (x[name].transpose(1, 2).contiguous().requires_grad_(True)
@@ -665,45 +825,23 @@ def phase_train_kernel_time(dev, cfg, batch, seq):
             torch.autograd.grad(out, (qt, kt, vt), ct, retain_graph=True)
 
     t = {key: graph_ms(fn) / n for key, fn in (
-        ("fwd", run_fwd), ("dq", run_dq), ("dkv", run_dkv), ("plain_fwd", run_plain_fwd),
-        ("plain_bwd", run_plain_bwd), ("lib_fwd", run_lib_fwd), ("fwd_repeat", run_fwd))}
+        ("fwd", runs["fwd"]), ("dq", runs["dq"]), ("dkv", runs["dkv"]),
+        ("plain_fwd", runs["plain_fwd"]), ("plain_bwd", runs["plain_bwd"]),
+        ("lib_fwd", run_lib_fwd), ("fwd_repeat", runs["fwd"]), ("dq_repeat", runs["dq"]))}
     # autograd's backward does not capture into a CUDA graph here (it runs on
     # the engine's own thread), so the library backward is timed eagerly, by
     # CUDA events: its host cost (a few us per layer) stays in its time
     t["lib_bwd"] = time_ms(run_lib_bwd) / n
-    item = 2
-    act = b * s * h * dh * item           # q, out, dO, dq: (B, S, H, Dh)
-    kvb = b * s * kv * dh * item          # k, v, dk, dv: (B, T, KV, Dh)
-    rows = b * s * h * 4                  # lse or delta, f32
-    pos = b * s * 4 + s * 4
-    pairs = b * h * s * s                 # every (query, key) pair is valid (non-causal)
-    bounds = {
-        "fwd": _bound(act * 2 + kvb * 2 + rows + pos, 4 * pairs * dh, dtype),
-        "dq": _bound(act * 3 + kvb * 2 + rows * 2 + pos, 6 * pairs * dh, dtype),
-        "dkv": _bound(act * 2 + kvb * 4 + rows * 2 + pos, 8 * pairs * dh, dtype),
-    }
     shape = {"B": b, "S": s, "T": s, "H": h, "KV": kv, "Dh": dh, "dtype": "bfloat16",
              "causal": False, "layers": n}
-    out = {
-        flash_attn.FWD: {"ms": t["fwd"], "ms_repeat": t["fwd_repeat"], "plain_ms": t["plain_fwd"],
-                         "library_ms": t["lib_fwd"], "shape": shape},
-        flash_attn.DQ: {"ms": t["dq"], "plain_ms": t["plain_bwd"], "library_ms": t["lib_bwd"],
-                        "shape": shape},
-        flash_attn.DKV: {"ms": t["dkv"], "plain_ms": t["plain_bwd"], "library_ms": t["lib_bwd"],
-                         "shape": shape},
-    }
-    for key, name in (("fwd", flash_attn.FWD), ("dq", flash_attn.DQ), ("dkv", flash_attn.DKV)):
-        out[name]["bound_ms"], out[name]["bound_by"] = bounds[key]
-    # the plain backward and the library backward each compute dq, dk and
-    # dv together: their time stands beside both backward kernels
-    out[flash_attn.DQ]["plain_and_library_cover"] = "dq, dk, dv"
-    out[flash_attn.DKV]["plain_and_library_cover"] = "dq, dk, dv"
+    out = _kernel_time_entries(t, _attn_bounds(layers), shape)
     for name in (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV):
         e = out[name]
         log(f"kernel_time: {name} per bert-base layer (B={b} S={s} bf16): ms={e['ms']:.4f} "
             f"plain_ms={e['plain_ms']:.4f} library_ms={e['library_ms']:.4f} "
             f"bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
-    del layers, lib
+    _log_tiles(layers, f"over {n} bert-base layers")
+    del layers, lib, runs
 
     n_el = ADAM_SIZES[0]
     g, m, v, gm = (_randn(rng, (n_el,), torch.float32, dev) for _ in range(4))
@@ -720,6 +858,122 @@ def phase_train_kernel_time(dev, cfg, batch, seq):
                          "shape": {"N": n_el, "dtype": "float32"}}
     log(f"kernel_time: adam_adapt at N={n_el}: ms={adam_ms:.4f} (repeat {adam_ms_2:.4f}) "
         f"plain_ms={adam_plain:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    return out
+
+
+def _sdpa_times(dev, layers, g):
+    """One scaled_dot_product_attention call per layer, forward and its
+    autograd backward (eager, by CUDA events), under every SDPA backend
+    that takes these inputs. K and V are expanded to the query heads
+    outside the timed region; a global layer passes is_causal=True, a local
+    one a boolean causal + window mask. Returns {backend: (fwd ms, bwd ms)}
+    per call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    lib = []
+    for x in layers:
+        qt = x["q"].transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (x[name].transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+                  .requires_grad_(True) for name in ("k", "v"))
+        window = x["kw"]["window"]
+        mask = None
+        if window:
+            qp, kp = x["q_pos"][0][:, None], x["kv_pos"][None, :]
+            mask = (kp <= qp) & (qp - kp < window)
+        lib.append((qt, kt, vt, mask, x["cot"].transpose(1, 2).contiguous()))
+
+    def call(qt, kt, vt, mask):
+        if mask is None:
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    times = {}
+    for backend in (getattr(SDPBackend, name, None) for name in (
+            "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")):
+        if backend is None:  # not in this PyTorch
+            continue
+        with sdpa_kernel([backend]):
+            try:
+                outs = [call(*x[:4]) for x in lib]
+                torch.cuda.synchronize()
+            except RuntimeError:  # this backend does not take these inputs
+                continue
+
+            def run_fwd():
+                with torch.no_grad():
+                    for x in lib:
+                        call(*x[:4])
+
+            def run_bwd():
+                for (qt, kt, vt, _, ct), out in zip(lib, outs):
+                    torch.autograd.grad(out, (qt, kt, vt), ct, retain_graph=True)
+
+            times[backend.name] = (time_ms(run_fwd, iters=10) / len(lib),
+                                   time_ms(run_bwd, iters=10) / len(lib))
+            del outs
+    if not times:
+        raise AssertionError("no scaled_dot_product_attention backend took the gemma3-1b layer")
+    return times
+
+
+def phase_gemma_attn_time(dev, cfg, batch=4, seq=1024):
+    """The forward, dq and dk/dv kernels over one pass of gemma3-1b's
+    layers in its 5:1 local:global pattern (B 4, S = T 1024, H 4 over KV 1,
+    Dh 256, bf16, causal, the 512-token window on local layers), each layer
+    its own inputs (26 x 5 MB beside the 50 MB L2), timed per call on the
+    global and on the local layers (CUDA-graph replay) beside the plain
+    versions and scaled_dot_product_attention under each backend that
+    takes the layer; the bounds from the valid (query, key) pairs of these
+    positions; the tiles the bf16 kernels visit."""
+    from repro_torch.kernels import flash_attn
+
+    rng = np.random.default_rng(SEED + 16)
+    b, s = batch, seq
+    kv, g, dh = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    kinds = cfg.layer_kinds
+    windows = [cfg.sliding_window if kind == "local" else 0 for kind in kinds]
+    layers = _attn_layers(rng, dev, b, s, kv, g, dh, windows,
+                          softcap=float(cfg.attn_logit_softcap or 0.0))
+    shape = {"B": b, "S": s, "T": s, "H": kv * g, "KV": kv, "Dh": dh, "dtype": "bfloat16",
+             "causal": True, "window": cfg.sliding_window,
+             "layers": {kind: kinds.count(kind) for kind in ("global", "local")}}
+    per_kind = {}
+    for kind in ("global", "local"):
+        sel = [x for x, k in zip(layers, kinds) if k == kind]
+        n = len(sel)
+        runs = _attn_runs(dev, sel)
+        t = {key: graph_ms(runs[key]) / n for key in ("fwd", "dq", "dkv", "plain_fwd",
+                                                       "plain_bwd")}
+        t["fwd_repeat"] = graph_ms(runs["fwd"]) / n
+        t["dq_repeat"] = graph_ms(runs["dq"]) / n
+        sdpa = _sdpa_times(dev, sel, g)
+        fwd_best = min(sdpa, key=lambda name: sdpa[name][0])
+        bwd_best = min(sdpa, key=lambda name: sdpa[name][1])
+        t["lib_fwd"], t["lib_bwd"] = sdpa[fwd_best][0], sdpa[bwd_best][1]
+        entries = _kernel_time_entries(t, _attn_bounds(sel), dict(shape, kind=kind))
+        for name, e in entries.items():
+            e["library_backend"] = fwd_best if name == flash_attn.FWD else bwd_best
+            e["library_ms_by_backend"] = {k: v[0 if name == flash_attn.FWD else 1]
+                                          for k, v in sdpa.items()}
+            e["library_call"] = ("scaled_dot_product_attention, K/V expanded, eager"
+                                 + ("" if name == flash_attn.FWD else ", autograd backward"))
+            log(f"kernel_time: {name} per gemma3-1b {kind} layer (B={b} S={s} bf16): "
+                f"ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} library_ms={e['library_ms']:.4f} "
+                f"({e['library_backend']}) bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
+        _log_tiles(sel, f"over {len(sel)} gemma3-1b {kind} layers")
+        per_kind[kind] = entries
+        del runs
+    del layers
+    torch.cuda.empty_cache()
+    out = {}
+    for name in (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV):
+        glob, loc = per_kind["global"][name], per_kind["local"][name]
+        n_g, n_l = shape["layers"]["global"], shape["layers"]["local"]
+        out[name] = {"gemma3-1b": {
+            "global": glob, "local": loc,
+            "ms_per_layer": (n_g * glob["ms"] + n_l * loc["ms"]) / (n_g + n_l),
+            "bound_ms_per_layer": (n_g * glob["bound_ms"] + n_l * loc["bound_ms"]) / (n_g + n_l)}}
     return out
 
 
@@ -1374,6 +1628,8 @@ def main():
     ce_worst = timed("ce_kernel_check", phase_ce_kernel_check, dev)
     adapt_worst = timed("adapt_kernel_check", phase_adapt_kernel_check, dev)
     t_time = timed("train_kernel_time", phase_train_kernel_time, dev, bert, batch=48, seq=128)
+    for name, e in timed("gemma_attn_time", phase_gemma_attn_time, dev, cfg).items():
+        t_time[name].update(e)
     t_time.update(timed("new_kernel_time", phase_new_kernel_time, dev))
     train_entries = []
     for name, source, replaces in (

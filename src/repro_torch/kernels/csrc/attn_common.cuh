@@ -6,7 +6,9 @@
 //   q, out, dO (B, S, H, Dh), k, v (B, T, KV, Dh), H = KV * G
 //   q_pos (B, S) int32, kv_pos (T,) int32 (-1 marks padding)
 //   lse (B * KV, G, S) f32, delta (B, S, H) f32
-// Every block works in f32 on f32 copies of its tiles in shared memory.
+// The CUDA-core kernels (f32 forward and dq, dk/dv in every dtype) work in
+// f32 on f32 copies of their tiles in shared memory; the tensor-core
+// kernels' pieces are in attn_mma.cuh.
 
 #pragma once
 
@@ -26,6 +28,13 @@ constexpr float kNeg = -1e30f;
 constexpr float kTiny = 1e-30f;
 constexpr int kMaxDh = 256;
 constexpr int kMaxGroup = 8;
+
+// The shapes the training kernels take (flash_attn._check_attention
+// checks the same before a launch).
+inline bool shape_ok(int b, int s_len, int t_len, int kv, int g_n, int dh) {
+  return b >= 1 && s_len >= 1 && t_len >= 1 && kv >= 1 && g_n >= 1 && g_n <= kMaxGroup &&
+         dh >= 8 && dh <= kMaxDh && dh % 8 == 0 && (long long)b * kv <= 65535;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

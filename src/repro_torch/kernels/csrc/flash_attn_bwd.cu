@@ -14,26 +14,41 @@
 // too). Neither kernel uses atomics: every output element is summed by one
 // thread in a fixed order, so the gradients are the same from run to run.
 //
-// What bounds them on this card: at the bert-base shape (B 48, S = T 128,
-// H = KV 12, Dh 64, bf16) the two together read q, k, v, dO, lse, delta
-// and write dq, dk, dv, 66 MB, for 6.0 GFLOP (two products to recompute
-// p and dp, three to form the gradients): 91 operations per byte, so the
-// 3.35 TB/s set the bound (20 us). As in the forward, this first version
-// runs the products on the CUDA cores in f32, exact against the plain
-// version and far from that bound.
+// What bounds them on this card:
+//  * bert-base (B 48, S = T 128, H = KV 12, Dh 64, bf16): dq reads q, k,
+//    v, dO, lse, delta and writes dq, 47 MB, for 3.6 GFLOP (three
+//    products): the 3.35 TB/s set its bound (14 us); dk/dv, 57 MB for 4.8
+//    GFLOP, likewise (17 us);
+//  * gemma3-1b (B 4, S = T 1024, H 4 over KV 1, Dh 256, causal, window 512
+//    on 5 of 6 layers): dq does 12.9 GFLOP of valid pairs on a global
+//    layer for 7 MB, so the 989 TFLOP/s of bf16 set its bound (13 us).
 //
-// What the design does:
-//  * dq: one block per (query tile, lane * KV head) with all G heads'
-//    rows of the tile, like the forward; lane j takes key j of each
-//    32-key tile staged in shared memory;
-//  * dk/dv: one block per (key tile, lane * KV head); it walks every
-//    query tile of every head g of the group, so the sum over the group
-//    happens inside the block; lane j takes query j of each 32-query tile;
-//  * the per-row gradient accumulators stay in registers over the whole
-//    loop, ds and p go through shared memory to the accumulating product,
-//    and the tensors are read in place in the model's layouts.
+// Routes, chosen by dtype (each dtype has exactly one):
+//  * dq in bf16 and f16: dq_tc_kernel, on the tensor cores. A block owns
+//    one (lane, KV head) and 64 (query, head) rows as in the forward
+//    (flash_attn_fwd.cu); Q and dO stay in shared memory for the whole
+//    block, lse and delta of each thread's two rows in registers, and K
+//    and V tiles (16 keys at Dh 256, 32 at Dh 128, 64 below) stream in by
+//    double-buffered 16-byte cp.async. Per tile, S = Q.K^T and dP = dO.V^T
+//    run on the tensor cores (exact products, f32 sums); p = exp(x - lse)
+//    and dS = p (dP - delta) dcap scale are formed in f32 on the
+//    accumulator registers, which are then the A operand of dQ += dS.K
+//    (K through ldmatrix.trans) as two 2-byte terms (hi and the rounded
+//    remainder, 16 bits of dS: the gradients' tolerance is 5e-5 + 1e-4
+//    relative). dQ stays in registers and is rounded once. The key tiles
+//    the causal mask, the window or padding leave empty are skipped, and
+//    full ones skip the elementwise mask (attn_mma.cuh);
+//  * dq in f32, and dk/dv in every dtype: the first design, on the CUDA
+//    cores in f32 (exact against the plain version): one block per (tile,
+//    lane * KV head) with all G heads of a group, lane j taking key (dq)
+//    or query (dk/dv) j of each 32-row tile staged in shared memory as
+//    f32; dk/dv walks every query tile of every head g of the group, so the
+//    sum over the group happens inside the block. The per-row gradient
+//    accumulators stay in registers, ds and p go through shared memory to
+//    the accumulating product, and the tensors are read in place in the
+//    model's layouts.
 
-#include "attn_common.cuh"
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -354,33 +369,268 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kDq>
-int launch_dh(const Args& a) {
-  if (a.dh <= 32) return kDq ? launch_dq<T, 1>(a) : launch_dkv<T, 1>(a);
-  if (a.dh <= 64) return kDq ? launch_dq<T, 2>(a) : launch_dkv<T, 2>(a);
-  if (a.dh <= 128) return kDq ? launch_dq<T, 4>(a) : launch_dkv<T, 4>(a);
-  return kDq ? launch_dq<T, 8>(a) : launch_dkv<T, 8>(a);
+
+// ---------------------------------------------------------------------------
+// dq in bf16 / f16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitDq = 2;  // 2-byte terms of dS in dS.K
+
+template <typename T, int kD, int kBK>
+struct DqTc {
+  static constexpr int kLd = kD + tc::kPad;
+  static constexpr size_t kSmem = sizeof(T) * (size_t)(2 * tc::kM + 4 * kBK) * kLd;
+};
+
+// grid: B * KV * (query tiles) blocks (tc::block_rows).
+template <typename T, int kD, int kBK>
+__global__ void __launch_bounds__(kThreads)
+dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const T* __restrict__ dout, const int* __restrict__ q_pos,
+             const int* __restrict__ kv_pos, const float* __restrict__ lse,
+             const float* __restrict__ delta, T* __restrict__ dq, int s_len, int t_len, int kv,
+             int g_n, int dh, int bq, int n_bh, int n_qt, bool causal, int window,
+             float softcap, float scale) {
+  using namespace tc;
+  using M = Mma<T>;
+  constexpr int kLd = DqTc<T, kD, kBK>::kLd;
+  constexpr int kN = kBK / 8;  // n8 tiles of scores per warp
+  constexpr int kO = kD / 8;   // n8 tiles of dq per warp
+  extern __shared__ float4 smem4[];
+  T* qs = reinterpret_cast<T*>(smem4);  // kM x kLd
+  T* os = qs + kM * kLd;                // kM x kLd (dO)
+  T* ks = os + kM * kLd;                // 2 x kBK x kLd
+  T* vs = ks + 2 * kBK * kLd;           // 2 x kBK x kLd
+
+  const BlockRows blk = block_rows(n_bh, n_qt, bq);
+  const int bh = blk.bh, s0 = blk.s0;
+  const int b = bh / kv;
+  const int kvh = bh - b * kv;
+  const int h_n = kv * g_n;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  load_rows_async<kD>(qs, q, b, kvh, s0, bq, s_len, h_n, g_n, dh);
+  load_rows_async<kD>(os, dout, b, kvh, s0, bq, s_len, h_n, g_n, dh);
+
+  // this thread's two rows: warp * 16 + lane / 4 and 8 below it
+  int qp[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int r = warp * 16 + (lane >> 2) + 8 * u;
+    const int qi = r / g_n;
+    const int g = r - qi * g_n;
+    const int sq = s0 + qi;
+    const bool on = qi < bq && sq < s_len;
+    qp[u] = on ? q_pos[(long long)b * s_len + sq] : -1;
+    const float ls = on ? lse[((long long)bh * g_n + g) * s_len + sq] : 0.f;
+    lse_r[u] = ls <= kNeg ? 0.f : ls;
+    delta_r[u] =
+        on ? delta[((long long)b * s_len + sq) * h_n + (long long)kvh * g_n + g] : 0.f;
+  }
+  float acc[kO][4];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  KeyTiles tiles(query_span(q_pos, b, s0, bq, s_len, lane));
+  const int n_kt = (t_len + kBK - 1) / kBK;
+  bool full = false, full_next = false;
+  int j = tiles.next<kBK>(0, full, kv_pos, t_len, n_kt, causal, window, lane);
+  if (j < n_kt) {
+    load_keys_async<kD, kBK>(ks, k, b, kvh, j * kBK, t_len, kv, dh);
+    load_keys_async<kD, kBK>(vs, v, b, kvh, j * kBK, t_len, kv, dh);
+  }
+  cp_commit();
+
+  // this lane's ldmatrix addresses (bytes, shared space); buffer 1 of K
+  // and V lies kBuf bytes above buffer 0
+  constexpr uint32_t kE = sizeof(T), kBuf = kBK * kLd * sizeof(T);
+  const uint32_t q_addr = smem_u32(qs) + (warp * 16 * kLd + a_off(lane, kLd)) * kE;
+  const uint32_t o_addr = smem_u32(os) + (warp * 16 * kLd + a_off(lane, kLd)) * kE;
+  const uint32_t k_addr = smem_u32(ks) + bn_off(lane, kLd) * kE;
+  const uint32_t kt_addr = smem_u32(ks) + bt_off(lane, kLd) * kE;
+  const uint32_t v_addr = smem_u32(vs) + bn_off(lane, kLd) * kE;
+  int buf = 0;
+  while (j < n_kt) {
+    const int jn = tiles.next<kBK>(j + 1, full_next, kv_pos, t_len, n_kt, causal, window, lane);
+    if (jn < n_kt) {
+      load_keys_async<kD, kBK>(ks + (buf ^ 1) * kBK * kLd, k, b, kvh, jn * kBK, t_len, kv, dh);
+      load_keys_async<kD, kBK>(vs + (buf ^ 1) * kBK * kLd, v, b, kvh, jn * kBK, t_len, kv, dh);
+    }
+    cp_commit();
+    cp_wait<1>();  // every group but the newest: tile j (and Q, dO) have landed
+    __syncthreads();
+    const uint32_t kb = k_addr + buf * kBuf, vb = v_addr + buf * kBuf;
+    const uint32_t ktb = kt_addr + buf * kBuf;
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows and kBK keys
+    float sc[kN][4], dp[kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      ldsm4(aq, q_addr + kk * 16 * kE);
+      ldsm4(ao, o_addr + kk * 16 * kE);
+#pragma unroll
+      for (int np = 0; np < kN / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        ldsm4(bk, kb + (np * 16 * kLd + kk * 16) * kE);
+        ldsm4(bv, vb + (np * 16 * kLd + kk * 16) * kE);
+        M::mma(sc[2 * np], aq, bk[0], bk[1]);
+        M::mma(sc[2 * np + 1], aq, bk[2], bk[3]);
+        M::mma(dp[2 * np], ao, bv[0], bv[1]);
+        M::mma(dp[2 * np + 1], ao, bv[2], bv[3]);
+      }
+    }
+
+    // dS in place of S
+    const int t0 = j * kBK;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        bool ok[2] = {true, true};
+        if (!full) {
+          const int t = t0 + n * 8 + 2 * (lane & 3) + c;
+          const int kp = t < t_len ? kv_pos[t] : -1;
+          ok[0] = tile_valid(qp[0], kp, causal, window);
+          ok[1] = tile_valid(qp[1], kp, causal, window);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = 2 * u + c;
+          float x, dcap;
+          recompute(sc[n][e] * scale, softcap, x, dcap);
+          const float p = ok[u] ? expf(x - lse_r[u]) : 0.f;
+          sc[n][e] = p * (dp[n][e] - delta_r[u]) * dcap * scale;
+        }
+      }
+    }
+
+    // dQ += dS K, dS from the score registers in two 2-byte terms
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t a[kSplitDq][4];
+      c_to_a<T, kSplitDq>(sc[2 * kk], sc[2 * kk + 1], a);
+#pragma unroll
+      for (int np = 0; np < kO / 2; ++np) {
+        uint32_t bb[4];
+        ldsm4_t(bb, ktb + (kk * 16 * kLd + np * 16) * kE);
+#pragma unroll
+        for (int s = 0; s < kSplitDq; ++s) {
+          M::mma(acc[2 * np], a[s], bb[0], bb[1]);
+          M::mma(acc[2 * np + 1], a[s], bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+    j = jn;
+    full = full_next;
+    buf ^= 1;
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int r = warp * 16 + (lane >> 2) + 8 * u;
+    const int qi = r / g_n, g = r - qi * g_n, sq = s0 + qi;
+    if (qi >= bq || sq >= s_len) continue;
+    T* dst = dq + (((long long)b * s_len + sq) * h_n + (long long)kvh * g_n + g) * dh +
+             2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < kO; ++i) {
+      if (i * 8 < dh) {
+        float x0 = acc[i][2 * u], x1 = acc[i][2 * u + 1];
+        *reinterpret_cast<uint32_t*>(dst + i * 8) = M::take(x0, x1);
+      }
+    }
+  }
 }
 
+// key tiles: 64 keys up to Dh 64, 32 at Dh 128, 16 at Dh 256 (dq then
+// holds 128 registers per thread, and two blocks fit on an SM)
+constexpr int dq_key_tile(int d) { return d <= 64 ? 64 : d <= 128 ? 32 : 16; }
+
+template <typename T, int kD>
+int launch_dq_tc(const Args& a) {
+  constexpr int kBK = dq_key_tile(kD);
+  constexpr size_t smem = DqTc<T, kD, kBK>::kSmem;
+  const int bq = tc::kM / a.g_n;
+  const int n_qt = (a.s_len + bq - 1) / bq;
+  const int n_bh = a.b * a.kv;
+  if ((long long)n_qt * n_bh > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem<dq_tc_kernel<T, kD, kBK>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_tc_kernel<T, kD, kBK><<<n_qt * n_bh, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.q_pos, a.kv_pos, a.lse, a.delta, static_cast<T*>(a.dq),
+      a.s_len, a.t_len, a.kv, a.g_n, a.dh, bq, n_bh, n_qt, a.causal != 0, a.window, a.softcap,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dq_tc_dh(const Args& a) {
+  switch (tc::tile_dh(a.dh)) {
+    case 32: return launch_dq_tc<T, 32>(a);
+    case 64: return launch_dq_tc<T, 64>(a);
+    case 128: return launch_dq_tc<T, 128>(a);
+    default: return launch_dq_tc<T, 256>(a);
+  }
+}
+
+// the CUDA-core kernels: dq in f32, dk/dv in every dtype
+template <typename T>
+int launch_dq_dh(const Args& a) {
+  if (a.dh <= 32) return launch_dq<T, 1>(a);
+  if (a.dh <= 64) return launch_dq<T, 2>(a);
+  if (a.dh <= 128) return launch_dq<T, 4>(a);
+  return launch_dq<T, 8>(a);
+}
+
+template <typename T>
+int launch_dkv_dh(const Args& a) {
+  if (a.dh <= 32) return launch_dkv<T, 1>(a);
+  if (a.dh <= 64) return launch_dkv<T, 2>(a);
+  if (a.dh <= 128) return launch_dkv<T, 4>(a);
+  return launch_dkv<T, 8>(a);
+}
+
+// the route by dtype: dq in bf16 and f16 on the tensor cores
 template <bool kDq>
 int launch_dtype(const Args& a, int dtype) {
-  if (a.b < 1 || a.s_len < 1 || a.t_len < 1 || a.kv < 1 || a.g_n < 1 || a.g_n > kMaxGroup ||
-      a.dh < 8 || a.dh > kMaxDh || a.dh % 8 || (long long)a.b * a.kv > 65535) {
+  if (!shape_ok(a.b, a.s_len, a.t_len, a.kv, a.g_n, a.dh)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (dtype) {
-    case 0: return launch_dh<float, kDq>(a);
-    case 1: return launch_dh<__nv_bfloat16, kDq>(a);
-    case 2: return launch_dh<__half, kDq>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kDq) {
+    switch (dtype) {
+      case 0: return launch_dq_dh<float>(a);
+      case 1: return launch_dq_tc_dh<__nv_bfloat16>(a);
+      case 2: return launch_dq_tc_dh<__half>(a);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (dtype) {
+      case 0: return launch_dkv_dh<float>(a);
+      case 1: return launch_dkv_dh<__nv_bfloat16>(a);
+      case 2: return launch_dkv_dh<__half>(a);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
 }  // namespace
 
-// Layouts as in flash_attn_fwd_launch; dout like q, lse (B * KV, G, S)
-// float32 from the forward, delta (B, S, KV * G) float32. dq like q;
-// dk and dv like k. Returns the CUDA error of the launch (0 on success).
+// Layouts as in flash_attn_fwd_launch; dout like q (16-byte aligned, as
+// q, k and v), lse (B * KV, G, S) float32 from the forward, delta (B, S,
+// KV * G) float32. dq like q; dk and dv like k. dtype 0 = float32, 1 =
+// bfloat16, 2 = float16 (dq on the tensor cores in the last two). Returns
+// the CUDA error of the launch (0 on success).
 extern "C" int flash_attn_dq_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* q_pos, const void* kv_pos,
                                     const void* lse, const void* delta, void* dq, int b,
@@ -405,4 +655,28 @@ extern "C" int flash_attn_dkv_launch(const void* q, const void* k, const void* v
                dv, b, s_len, t_len, kv, g_n, dh, causal, window, softcap, scale,
                static_cast<cudaStream_t>(stream)};
   return launch_dtype<false>(a, dtype);
+}
+
+// The tile of the bf16/f16 dq kernel at group size g_n and head dim dh:
+// *bq queries (with all g_n heads of each) by *bk keys. Returns 0, or
+// cudaErrorInvalidValue for a shape flash_attn_dq_launch refuses.
+extern "C" int flash_attn_dq_tiles(int g_n, int dh, int* bq, int* bk) {
+  if (!attn::shape_ok(1, 1, 1, 1, g_n, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  *bq = attn::tc::kM / g_n;
+  *bk = dq_key_tile(attn::tc::tile_dh(dh));
+  return 0;
+}
+
+// The key tiles the bf16/f16 dq kernel's blocks visit at these positions,
+// added to *visits (one uint64 on the device): its walk alone
+// (tc::visit_kernel). Arguments as in flash_attn_dq_launch.
+extern "C" int flash_attn_dq_visits(const void* q_pos, const void* kv_pos, int b, int s_len,
+                                    int t_len, int kv, int g_n, int dh, int causal, int window,
+                                    void* visits, void* stream) {
+  int bq = 0, bk = 0;
+  if (!attn::shape_ok(b, s_len, t_len, kv, g_n, dh) || flash_attn_dq_tiles(g_n, dh, &bq, &bk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return attn::tc::launch_visits(bq, bk, q_pos, kv_pos, b, s_len, t_len, kv, causal, window,
+                                 visits, stream);
 }

@@ -8,9 +8,13 @@ Counterpart of ``src/repro/kernels/flash_attn.py``:
   forward is ``csrc/flash_attn_fwd.cu`` (blockwise online softmax, saving
   ``out`` and ``lse``) and whose backward is the two recompute kernels of
   ``csrc/flash_attn_bwd.cu`` (dq; dk and dv summed over the query group).
-  Like the JAX custom VJP it saves only ``(q, k, v, out, lse)`` and the
-  positions. Its plain versions are ``flash_attention_ref``'s ops (which
-  also give the lse) and the recompute of ``_bwd_tile`` in torch ops.
+  In bf16 and f16 the forward and dq run on the tensor cores and visit
+  only the tiles :func:`live_tiles` keeps (tile sizes :func:`tc_tiles`,
+  the walk's own count :func:`tc_visits`);
+  f32 and dk/dv run on the CUDA cores. Like the JAX custom VJP it saves
+  only ``(q, k, v, out, lse)`` and the positions. Its plain versions are
+  ``flash_attention_ref``'s ops (which also give the lse) and the
+  recompute of ``_bwd_tile`` in torch ops.
 * decode (``flash_decode``): ``csrc/flash_decode.cu``, stage 1 and the
   merge as two CUDA kernels behind one C call.
 
@@ -165,6 +169,87 @@ def _flash_decode_cuda(q, k, v, q_pos, local_flag, *, softcap, window, n_splits)
 
 #: the training kernels' launch counters (``dispatch.launches``)
 FWD, DQ, DKV = "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"
+
+
+#: the bf16/f16 kernels' libraries and the prefix of their C entry points
+_TC = {FWD: ("flash_attn_fwd", "flash_attn_fwd"), DQ: ("flash_attn_bwd", "flash_attn_dq")}
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_fn(kernel, what):
+    if kernel not in _TC:
+        raise ValueError(f"{kernel!r} has no tensor-core kernel")
+    source, prefix = _TC[kernel]
+    fn = getattr(build.load(source), f"{prefix}_{what}")
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2 if what == "tiles"
+                   else [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tc_tiles(kernel, g, dh):
+    """(queries, keys) per tile of the bf16/f16 ``kernel`` (FWD or DQ) at
+    group size ``g`` and head dim ``dh``, as its library reports them (a
+    block owns all g heads of its queries; the key tile shrinks as Dh
+    grows). Needs the card's toolchain: the library is built to ask it."""
+    bq, bk = ctypes.c_int(), ctypes.c_int()
+    err = _tc_fn(kernel, "tiles")(g, dh, ctypes.byref(bq), ctypes.byref(bk))
+    if err != 0:
+        raise ValueError(f"tc_tiles: {kernel} takes no G={g}, Dh={dh} (CUDA error {err})")
+    return bq.value, bk.value
+
+
+def tc_visits(kernel, q_pos, kv_pos, kv, g, dh, *, causal, window):
+    """Key tiles the blocks of the bf16/f16 ``kernel`` (FWD or DQ) visit at
+    these positions (cuda int32 q_pos (B, S), kv_pos (T,)), summed over the
+    lanes and the ``kv`` heads: the kernel's own walk over its tiles
+    (``tc::visit_kernel``) run alone, with nothing loaded or multiplied.
+    ``window`` > 0 is an engaged window, as at the kernels' C calls."""
+    if q_pos.dim() != 2 or kv_pos.dim() != 1 or q_pos.device.type != "cuda" \
+            or kv_pos.device != q_pos.device:
+        raise ValueError(f"tc_visits: q_pos (B, S) and kv_pos (T,) must be cuda tensors on one "
+                         f"device, got {tuple(q_pos.shape)} on {q_pos.device}, "
+                         f"{tuple(kv_pos.shape)} on {kv_pos.device}")
+    q_pos = q_pos.to(torch.int32).contiguous()
+    kv_pos = kv_pos.to(torch.int32).contiguous()
+    (b, s), t = q_pos.shape, kv_pos.shape[0]
+    count = torch.zeros(1, dtype=torch.int64, device=q_pos.device)
+    err = _tc_fn(kernel, "visits")(
+        q_pos.data_ptr(), kv_pos.data_ptr(), b, s, t, kv, g, dh, int(causal), int(window),
+        count.data_ptr(), torch.cuda.current_stream(q_pos.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tc_visits: {kernel} walk failed with CUDA error {err}")
+    return int(count.item())
+
+
+def live_tiles(q_pos, kv_pos, bq, bk, *, causal, window):
+    """Which (query tile, key tile) pairs the bf16/f16 kernels visit: (B,
+    ceil(S / bq), ceil(T / bk)) bool. Over the valid (>= 0) positions of a
+    query tile of lane b and of a key tile, a tile is skipped when it has
+    no valid query or no valid key, or ``causal`` and min(key) > max(query),
+    or ``window`` > 0 and min(query) - max(key) >= window; then no pair of
+    it passes ``_tile_valid``. The rule of ``tc::tile_state`` in
+    csrc/attn_mma.cuh; ``tc_tiles`` gives the kernels' tile sizes and
+    ``tc_visits`` counts what their walk visits."""
+    q_pos = torch.as_tensor(q_pos).long()
+    kv_pos = torch.as_tensor(kv_pos).long()
+    b, s = q_pos.shape
+    t = kv_pos.shape[0]
+    nq, nk = -(-s // bq), -(-t // bk)
+    qp = torch.nn.functional.pad(q_pos, (0, nq * bq - s), value=-1).reshape(b, nq, bq)
+    kp = torch.nn.functional.pad(kv_pos, (0, nk * bk - t), value=-1).reshape(nk, bk)
+    far = 1 << 40  # above every position, so no difference overflows
+    q_ok, k_ok = qp >= 0, kp >= 0
+    q_lo = torch.where(q_ok, qp, far).amin(-1)[:, :, None]
+    q_hi = torch.where(q_ok, qp, -1).amax(-1)[:, :, None]
+    k_lo = torch.where(k_ok, kp, far).amin(-1)[None, None, :]
+    k_hi = torch.where(k_ok, kp, -1).amax(-1)[None, None, :]
+    live = q_ok.any(-1)[:, :, None] & k_ok.any(-1)[None, None, :]
+    if causal:
+        live = live & (k_lo <= q_hi)
+    if window:
+        live = live & (q_lo - k_hi < window)
+    return live
 
 
 def _tile_valid(q_pos, kv_pos, *, causal, window):
@@ -326,6 +411,14 @@ def _check_attention(q, k, v, q_pos, kv_pos):
                              f"cuda tensors on one device (q is on {q.device})")
         if not x.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+    _check_aligned(q=q, k=k, v=v)
+
+
+def _check_aligned(**tensors):
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte aligned (the kernels "
+                             "stage rows with 16-byte cp.async copies)")
 
 
 def _dims(q, k):
@@ -356,6 +449,7 @@ def _bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, g_out, *, softcap, window, cau
     if g_out.shape != q.shape or g_out.dtype != q.dtype or g_out.device != q.device:
         raise ValueError(f"flash_attention: the output gradient is {g_out.dtype} "
                          f"{tuple(g_out.shape)}, q is {q.dtype} {tuple(q.shape)}")
+    _check_aligned(g_out=g_out)
     for name, x, shape in (("lse", lse, (b * kv, g, s)), ("delta", delta, (b, s, kv * g))):
         if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous() \
                 or x.device != q.device:

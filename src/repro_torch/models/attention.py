@@ -77,7 +77,10 @@ def _chunked_sdpa(q, k, v, q_pos, kv_pos, *, chunk, softcap=0.0, local_flag=None
         pv = torch.einsum("bkgst,btkd->bskgd", p.to(q.dtype), vc)
         acc = acc * torch.movedim(scale_old, -1, 1)[..., None].to(q.dtype) + pv
         m = m_new
-    denom = torch.movedim(torch.clamp_min(l, 1e-30), -1, 1)[..., None]
+    # l is 0 on a fully masked row and at least 1 on any other: the floor
+    # must survive the cast to q's dtype (1e-30 is 0 in f16)
+    floor = max(1e-30, torch.finfo(q.dtype).tiny)
+    denom = torch.movedim(torch.clamp_min(l, floor), -1, 1)[..., None]
     out = (acc / denom.to(q.dtype)).reshape(B, S, KV * G, Dh)
     lse = torch.where(l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), NEG)
     return out, lse

@@ -158,6 +158,25 @@ def test_padded_query_rows_leave_the_other_rows_alone():
                                    atol=FWD_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_chunked_path_zeroes_fully_masked_rows_in_every_dtype(dtype):
+    """On the chunked path a query at position -1 sees no key: its row is
+    zero (the kernels' value) in every dtype, f16 included, whose range
+    has no room for the f32 floor of the softmax sum; the other rows agree
+    with the JAX ref in f32 and the VJP stays finite."""
+    case = CASES[5]
+    arrays = list(_inputs(case))
+    arrays[4][:, :2] = -1
+    ref, _ = _jax_pair(case, arrays, jnp.float32)
+    got, leaves = _port(case, arrays, dtype, requires_grad=True)
+    got.float().sum().backward()
+    assert torch.equal(got[:, :2], torch.zeros_like(got[:, :2]))
+    tol = FWD_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got.detach().float().numpy()[:, 2:], np.asarray(ref)[:, 2:],
+                               atol=tol, rtol=0)
+    assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
+
+
 def test_local_flag_false_drops_the_window():
     case = CASES[1]
     q, k, v, _, q_pos, kv_pos = (torch.from_numpy(x) for x in _inputs(case))

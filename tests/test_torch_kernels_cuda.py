@@ -13,7 +13,7 @@ a machine with only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: flash forward 1e-5 and VJP 5e-5 in f32, 2e-2 in bf16
-(tests/test_flash_attention.py); the adaptation products out rtol 1e-5 /
+(tests/test_flash_attention.py) and in f16; the adaptation products out rtol 1e-5 /
 atol 1e-7 and sum of squares rtol 1e-4 (tests/test_kernels.py);
 weighted_ce as stated at its test.
 """
@@ -27,7 +27,7 @@ from repro_torch.kernels import adam_adapt, dispatch, flash_attn  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: (1e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
+TOL = {torch.float32: (1e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2), torch.float16: (2e-2, 2e-2)}
 
 
 @pytest.fixture
@@ -43,30 +43,38 @@ def _randn(rng, shape, dtype, dev):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
 
-# (B, S, T, KV, G, Dh, causal, window, softcap): bert-base's layer, the
-# gemma-like training shape (G 4, Dh 256, window, softcap), and ragged or
-# odd group and head sizes
+# (B, S, T, KV, G, Dh, causal, window, softcap, padded): bert-base's
+# layer, the gemma-like training shape (G 4, Dh 256, window, softcap),
+# ragged or odd group and head sizes, and padding: keys 64-191 (whole key
+# tiles) and lane 1's queries 32-95 (whole query tiles) at position -1
 CASES = [
-    (4, 128, 128, 12, 1, 64, False, 0, 0.0),
-    (2, 200, 200, 1, 4, 256, True, 64, 50.0),
-    (3, 17, 45, 2, 3, 40, True, 0, 0.0),
-    (2, 33, 33, 1, 8, 8, True, 5, 20.0),
+    (4, 128, 128, 12, 1, 64, False, 0, 0.0, False),
+    (2, 200, 200, 1, 4, 256, True, 64, 50.0, False),
+    (3, 17, 45, 2, 3, 40, True, 0, 0.0, False),
+    (2, 33, 33, 1, 8, 8, True, 5, 20.0, False),
+    (2, 170, 250, 1, 4, 128, True, 0, 0.0, True),
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", CASES)
 def test_flash_attention_kernels_match_plain(dev, case, dtype):
-    B, S, T, KV, G, Dh, causal, window, softcap = case
+    B, S, T, KV, G, Dh, causal, window, softcap, padded = case
     rng = np.random.default_rng(S * 7 + Dh)
     q = _randn(rng, (B, S, KV * G, Dh), dtype, dev)
     k = _randn(rng, (B, T, KV, Dh), dtype, dev)
     v = _randn(rng, (B, T, KV, Dh), dtype, dev)
     cot = _randn(rng, (B, S, KV * G, Dh), dtype, dev)
     # queries continue after the first T - S keys, as a prefill would
-    q_pos = (torch.arange(S, device=dev) + (T - S))[None].expand(B, S)
+    q_pos = (torch.arange(S, device=dev) + (T - S))[None].expand(B, S).contiguous()
     kv_pos = torch.arange(T, device=dev)
     kw = dict(softcap=softcap, window=window, causal=causal)
+    if padded:
+        kv_pos[64:192] = -1
+        q_pos[1, 32:96] = -1
+        # the plain forward drops padded keys on its chunked path only
+        # (make_mask keeps them, as the JAX reference's does)
+        kw["chunk"] = 64
     fwd_tol, grad_tol = TOL[dtype]
 
     def run(backend):
@@ -104,6 +112,26 @@ def test_flash_attention_kernel_lse_and_masked_rows(dev):
     assert torch.all(out[1, 5:] == 0)
     assert torch.all(lse.reshape(B, KV * G, S)[1, :, 5:] == flash_attn.NEG)
     torch.testing.assert_close(lse[:KV], lse_plain, atol=1e-5, rtol=1e-6)
+
+
+def test_flash_attention_wrapper_rejects_a_misaligned_view(dev):
+    """The kernels stage rows with 16-byte cp.async copies: a contiguous
+    view 2 bytes past an aligned address is refused, in both passes."""
+    B, S, H, Dh = 1, 4, 2, 16
+    base = torch.zeros(B * S * H * Dh + 8, device=dev, dtype=torch.bfloat16)
+    bad = base[1:1 + B * S * H * Dh].view(B, S, H, Dh)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 2
+    good = torch.zeros((B, S, H, Dh), device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros((B, S, 1, Dh), device=dev, dtype=torch.bfloat16)
+    q_pos = torch.arange(S, device=dev, dtype=torch.int32)[None].contiguous()
+    kv_pos = torch.arange(S, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attn.flash_attention(bad, kv, kv, q_pos, kv_pos)
+    lse = torch.zeros((B, H, S), device=dev)
+    delta = torch.zeros((B, S, H), device=dev)
+    with pytest.raises(ValueError, match="g_out must be 16-byte aligned"):
+        flash_attn._bwd_cuda(good, kv, kv, q_pos, kv_pos, lse, delta, bad, softcap=0.0,
+                             window=0, causal=True)
 
 
 def test_flash_attention_wrapper_rejects_what_the_kernels_do_not_take(dev):
