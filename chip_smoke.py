@@ -14,7 +14,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    ``-Xptxas -v`` register, spill and shared-memory lines and, for the two
    training attention libraries, each kernel's count of tensor-core
    instructions (HMMA or HGMMA) in ``cuobjdump -sass``: the bf16 and f16
-   forward and dq kernels must have some.
+   forward, dq and dk/dv kernels must have some.
 3. decode kernel: ``flash_decode`` against its plain PyTorch version on
    the card at gemma3-1b shapes (B in {1, 4, 8}, KV=1, G=4, Dh=256, T in
    {16, 128, 1024, 2048}, window on and off, softcap 0 and 50, split
@@ -30,7 +30,8 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    and with whole key and query tiles of padding, f32 (1e-5 forward, 5e-5
    + 1e-4 relative gradients) and bf16 (2e-2 + 2e-2 relative), the bf16
    results also within half an ulp (plus the f32 tolerance) of the plain
-   version in f32 on the same inputs;
+   version in f32 on the same inputs, and the bf16 gradients of two runs
+   bitwise equal;
    ``adam_adapt`` at the embedding's 23,440,896 elements, the stacked MLP
    weights' 28,311,552 and a ragged size (rtol 1e-5, sum of squares 1e-4);
    ``weighted_ce`` forward and backward at gemma3-1b's LM loss (the (4,
@@ -42,7 +43,8 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    ``adam_adapt``); then each kernel's time (per bert-base layer at B 48,
    S 128, bf16; the attention kernels also per gemma3-1b global and local
    layer over one pass of its 26 layers, with SDPA's time under each
-   backend that takes the layer and the tiles the bf16 kernels visit; the
+   backend that takes the layer (the median of five timings, their range
+   beside it) and the tiles the bf16 kernels visit; the
    CE at gemma3-1b's shape in f32; the adaptation products at 23.4 M
    elements) beside its plain version's, the library call's and the
    bound (for attention, from the valid (query, key) pairs).
@@ -123,6 +125,12 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def median_ms(fn, reps=5, iters=10):
+    """``time_ms(fn, iters)`` repeated ``reps`` times: (median, min, max)."""
+    times = sorted(time_ms(fn, iters) for _ in range(reps))
+    return times[reps // 2], times[0], times[-1]
+
+
 def graph_ms(fn, iters=20):
     """Device time of ``fn()``: its launches captured once in a CUDA graph
     and replayed, so the host's launch overhead drops out."""
@@ -156,9 +164,10 @@ def phase_device():
 
 
 #: the libraries whose SASS is searched for tensor-core instructions, and
-#: the kernel in each whose every instantiation (bf16 and f16, each head
+#: the kernels in each whose every instantiation (bf16 and f16, each head
 #: dim) must hold some
-MMA_KERNELS = {"flash_attn_fwd": "fwd_tc_kernel", "flash_attn_bwd": "dq_tc_kernel"}
+MMA_KERNELS = {"flash_attn_fwd": ("fwd_tc_kernel",),
+               "flash_attn_bwd": ("dq_tc_kernel", "dkv_tc_kernel")}
 
 
 def _cuda_tool(name):
@@ -206,14 +215,14 @@ def phase_build():
             counts = _sass_mma_counts(path)
             for fn, n in counts.items():
                 log(f"  sass: {name}: HMMA {n}: {fn[:120]}")
-            tc = {fn: n for fn, n in counts.items() if MMA_KERNELS[name] in fn}
-            for dtype in ("__nv_bfloat16", "__half"):
-                if not any(f"<{dtype}," in fn for fn in tc):
-                    raise AssertionError(f"{name}: no {MMA_KERNELS[name]}<{dtype}, ...> in its "
-                                         "SASS")
-            for fn, n in tc.items():
-                if n == 0:
-                    raise AssertionError(f"{fn}: no tensor-core instruction in its SASS")
+            for kernel in MMA_KERNELS[name]:
+                tc = {fn: n for fn, n in counts.items() if f"{kernel}<" in fn}
+                for dtype in ("__nv_bfloat16", "__half"):
+                    if not any(f"<{dtype}," in fn for fn in tc):
+                        raise AssertionError(f"{name}: no {kernel}<{dtype}, ...> in its SASS")
+                for fn, n in tc.items():
+                    if n == 0:
+                        raise AssertionError(f"{fn}: no tensor-core instruction in its SASS")
     log(f"build_seconds: {secs:.2f} (all sources at once)")
     return per
 
@@ -572,6 +581,7 @@ def phase_train_kernel_check(dev):
     names = (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV)
     worst = {n: {torch.float32: 0.0, torch.bfloat16: 0.0} for n in names}
     share_vs_f32 = {n: 0.0 for n in names}
+    repeats = 0  # shapes whose bf16 gradients two runs gave bitwise equal
     for name, b, s, t, kv, g, dh, causal, window, softcap, padded in TRAIN_SHAPES:
         kw = dict(softcap=softcap, window=window, causal=causal)
         plain_kw = dict(kw, chunk=PADDED_CHUNK if padded else 0)
@@ -606,6 +616,14 @@ def phase_train_kernel_check(dev):
                 out, lse = flash_attn._fwd_cuda(q, k, v, q_pos, kv_pos, **kw)
                 delta = torch.sum(cot.float() * out.float(), dim=-1)
                 grads = flash_attn._bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, cot, **kw)
+                # no atomics: a second run gives the same bits
+                again = flash_attn._bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, cot, **kw)
+                for kname, a, r in zip(names[1:] + names[2:], grads, again):
+                    if not torch.equal(a, r):
+                        raise AssertionError(f"{kname} bf16 at {name}: two runs differ in "
+                                             f"{int((a != r).sum())} elements")
+                repeats += 1
+                del again
                 ref_out, _ = flash_attn.flash_attention_fwd_plain(
                     q.float(), k.float(), v.float(), q_pos, kv_pos, **plain_kw)
                 ref_grads = flash_attn.flash_attention_bwd_plain(
@@ -627,6 +645,8 @@ def phase_train_kernel_check(dev):
             f"max_err_f32={worst[kname][torch.float32]:.3e} "
             f"max_err_bf16={worst[kname][torch.bfloat16]:.3e}; bf16 vs plain in f32 within "
             f"{share_vs_f32[kname]:.3f} of the half-ulp bound")
+    log(f"kernel_check: dq, dk, dv bf16 bitwise equal over two runs at {repeats} of "
+        f"{len(TRAIN_SHAPES)} shapes")
 
     rng = np.random.default_rng(SEED + 17)  # its own inputs, whatever the shapes above draw
     adam_worst = 0.0
@@ -753,13 +773,13 @@ def _attn_bounds(layers):
 
 
 def _log_tiles(layers, where):
-    """The key tiles the bf16 forward and dq visit over ``layers``: each
-    kernel's own walk run alone (``flash_attn.tc_visits``) beside the count
-    of the ``live_tiles`` rule at the tile sizes its library reports, over
-    lanes and KV heads. Fails if the two differ."""
+    """The tiles the bf16 forward, dq and dk/dv visit over ``layers``: each
+    kernel's own walk run alone (``flash_attn.tc_visits``; dk/dv's from the
+    key side) beside the count of the ``live_tiles`` rule at the tile sizes
+    its library reports, over lanes and KV heads. Fails if the two differ."""
     from repro_torch.kernels import flash_attn
 
-    for kernel in (flash_attn.FWD, flash_attn.DQ):
+    for kernel in (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV):
         walk = rule = total = 0
         for x in layers:
             _, _, _, kv, g, dh = flash_attn._dims(x["q"], x["k"])
@@ -784,8 +804,12 @@ def _kernel_time_entries(t, bounds, shape):
         out[name] = {"ms": t[key], "plain_ms": t["plain_fwd" if key == "fwd" else "plain_bwd"],
                      "library_ms": t["lib_fwd" if key == "fwd" else "lib_bwd"],
                      "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "shape": shape}
-    out[flash_attn.FWD]["ms_repeat"] = t["fwd_repeat"]
-    out[flash_attn.DQ]["ms_repeat"] = t["dq_repeat"]
+    # the library backward is timed eagerly: the median of five timings,
+    # with their range
+    out[flash_attn.DQ]["library_ms_range"] = t["lib_bwd_range"]
+    out[flash_attn.DKV]["library_ms_range"] = t["lib_bwd_range"]
+    for key, name in (("fwd", flash_attn.FWD), ("dq", flash_attn.DQ), ("dkv", flash_attn.DKV)):
+        out[name]["ms_repeat"] = t[f"{key}_repeat"]
     # the plain backward and the library backward each compute dq, dk and
     # dv together: their time stands beside both backward kernels
     out[flash_attn.DQ]["plain_and_library_cover"] = "dq, dk, dv"
@@ -827,19 +851,24 @@ def phase_train_kernel_time(dev, cfg, batch, seq):
     t = {key: graph_ms(fn) / n for key, fn in (
         ("fwd", runs["fwd"]), ("dq", runs["dq"]), ("dkv", runs["dkv"]),
         ("plain_fwd", runs["plain_fwd"]), ("plain_bwd", runs["plain_bwd"]),
-        ("lib_fwd", run_lib_fwd), ("fwd_repeat", runs["fwd"]), ("dq_repeat", runs["dq"]))}
+        ("lib_fwd", run_lib_fwd), ("fwd_repeat", runs["fwd"]), ("dq_repeat", runs["dq"]),
+        ("dkv_repeat", runs["dkv"]))}
     # autograd's backward does not capture into a CUDA graph here (it runs on
     # the engine's own thread), so the library backward is timed eagerly, by
-    # CUDA events: its host cost (a few us per layer) stays in its time
-    t["lib_bwd"] = time_ms(run_lib_bwd) / n
+    # CUDA events, as the median of five timings: its host cost (a few us per
+    # layer) stays in its time
+    med, lo, hi = median_ms(run_lib_bwd)
+    t["lib_bwd"], t["lib_bwd_range"] = med / n, [lo / n, hi / n]
     shape = {"B": b, "S": s, "T": s, "H": h, "KV": kv, "Dh": dh, "dtype": "bfloat16",
              "causal": False, "layers": n}
     out = _kernel_time_entries(t, _attn_bounds(layers), shape)
     for name in (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV):
         e = out[name]
+        lib_range = e.get("library_ms_range")
         log(f"kernel_time: {name} per bert-base layer (B={b} S={s} bf16): ms={e['ms']:.4f} "
-            f"plain_ms={e['plain_ms']:.4f} library_ms={e['library_ms']:.4f} "
-            f"bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
+            f"plain_ms={e['plain_ms']:.4f} library_ms={e['library_ms']:.4f}"
+            + (f" ({lib_range[0]:.4f}-{lib_range[1]:.4f})" if lib_range else "")
+            + f" bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
     _log_tiles(layers, f"over {n} bert-base layers")
     del layers, lib, runs
 
@@ -863,11 +892,12 @@ def phase_train_kernel_time(dev, cfg, batch, seq):
 
 def _sdpa_times(dev, layers, g):
     """One scaled_dot_product_attention call per layer, forward and its
-    autograd backward (eager, by CUDA events), under every SDPA backend
-    that takes these inputs. K and V are expanded to the query heads
-    outside the timed region; a global layer passes is_causal=True, a local
-    one a boolean causal + window mask. Returns {backend: (fwd ms, bwd ms)}
-    per call."""
+    autograd backward (eager, by CUDA events, each the median of five
+    timings of ten passes), under every SDPA backend that takes these
+    inputs. K and V are expanded to the query heads outside the timed
+    region; a global layer passes is_causal=True, a local one a boolean
+    causal + window mask. Returns {backend: ((fwd ms, min, max), (bwd ms,
+    min, max))} per call."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -909,8 +939,8 @@ def _sdpa_times(dev, layers, g):
                 for (qt, kt, vt, _, ct), out in zip(lib, outs):
                     torch.autograd.grad(out, (qt, kt, vt), ct, retain_graph=True)
 
-            times[backend.name] = (time_ms(run_fwd, iters=10) / len(lib),
-                                   time_ms(run_bwd, iters=10) / len(lib))
+            times[backend.name] = tuple(tuple(x / len(lib) for x in median_ms(fn))
+                                        for fn in (run_fwd, run_bwd))
             del outs
     if not times:
         raise AssertionError("no scaled_dot_product_attention backend took the gemma3-1b layer")
@@ -945,12 +975,13 @@ def phase_gemma_attn_time(dev, cfg, batch=4, seq=1024):
         runs = _attn_runs(dev, sel)
         t = {key: graph_ms(runs[key]) / n for key in ("fwd", "dq", "dkv", "plain_fwd",
                                                        "plain_bwd")}
-        t["fwd_repeat"] = graph_ms(runs["fwd"]) / n
-        t["dq_repeat"] = graph_ms(runs["dq"]) / n
+        for key in ("fwd", "dq", "dkv"):
+            t[f"{key}_repeat"] = graph_ms(runs[key]) / n
         sdpa = _sdpa_times(dev, sel, g)
-        fwd_best = min(sdpa, key=lambda name: sdpa[name][0])
-        bwd_best = min(sdpa, key=lambda name: sdpa[name][1])
-        t["lib_fwd"], t["lib_bwd"] = sdpa[fwd_best][0], sdpa[bwd_best][1]
+        fwd_best = min(sdpa, key=lambda name: sdpa[name][0][0])
+        bwd_best = min(sdpa, key=lambda name: sdpa[name][1][0])
+        t["lib_fwd"], t["lib_bwd"] = sdpa[fwd_best][0][0], sdpa[bwd_best][1][0]
+        t["lib_bwd_range"] = list(sdpa[bwd_best][1][1:])
         entries = _kernel_time_entries(t, _attn_bounds(sel), dict(shape, kind=kind))
         for name, e in entries.items():
             e["library_backend"] = fwd_best if name == flash_attn.FWD else bwd_best
@@ -958,9 +989,11 @@ def phase_gemma_attn_time(dev, cfg, batch=4, seq=1024):
                                           for k, v in sdpa.items()}
             e["library_call"] = ("scaled_dot_product_attention, K/V expanded, eager"
                                  + ("" if name == flash_attn.FWD else ", autograd backward"))
+            lib_range = e.get("library_ms_range")
             log(f"kernel_time: {name} per gemma3-1b {kind} layer (B={b} S={s} bf16): "
-                f"ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} library_ms={e['library_ms']:.4f} "
-                f"({e['library_backend']}) bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
+                f"ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} library_ms={e['library_ms']:.4f}"
+                + (f" ({lib_range[0]:.4f}-{lib_range[1]:.4f})" if lib_range else "")
+                + f" ({e['library_backend']}) bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
         _log_tiles(sel, f"over {len(sel)} gemma3-1b {kind} layers")
         per_kind[kind] = entries
         del runs

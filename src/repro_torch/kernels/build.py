@@ -28,8 +28,12 @@ BUILD_DIR = ROOT / "build" / "kernels"
 #: the kernel sources, one library each
 SOURCES = {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
+#: ``--split-compile=0`` runs nvcc's optimizer on all the host's cores: the
+#: training attention sources, dozens of template instantiations each, then
+#: build in less than half the time (``chip_smoke.py``'s build phase prints
+#: each source's seconds)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -6,7 +6,7 @@
 //   q, out, dO (B, S, H, Dh), k, v (B, T, KV, Dh), H = KV * G
 //   q_pos (B, S) int32, kv_pos (T,) int32 (-1 marks padding)
 //   lse (B * KV, G, S) f32, delta (B, S, H) f32
-// The CUDA-core kernels (f32 forward and dq, dk/dv in every dtype) work in
+// The CUDA-core kernels (the f32 forward, dq and dk/dv) work in
 // f32 on f32 copies of their tiles in shared memory; the tensor-core
 // kernels' pieces are in attn_mma.cuh.
 

@@ -2,8 +2,10 @@
 // kernels (flash_attn_fwd.cu, flash_attn_bwd.cu): mma.sync m16n8k16 with
 // f32 accumulators, ldmatrix fragment loads, 16-byte cp.async staging with
 // zero fill, the split of an f32 operand into 2-byte terms, the test
-// that decides which (query tile, key tile) pairs a block visits, and that
-// walk alone (visit_kernel), which counts the tiles.
+// that decides which (query tile, key tile) pairs a block visits, the two
+// walks over them (KeyTiles from a block of query rows, QueryTiles from a
+// block of keys), and the first walk alone (visit_kernel), which counts
+// the tiles (flash_attn_bwd.cu has the second's).
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16 x 16 row-major, 4 registers of 2 elements: (g, 2t..2t+1),
@@ -42,6 +44,16 @@ struct BlockRows {
 __device__ __forceinline__ BlockRows block_rows(int n_bh, int n_qt, int bq) {
   return BlockRows{static_cast<int>(blockIdx.x % n_bh),
                    (n_qt - 1 - static_cast<int>(blockIdx.x / n_bh)) * bq};
+}
+
+// The mirror for a block of bk keys (dkv_tc_kernel): block i takes pair bh
+// = i % n_bh and keys t0 = (i / n_bh) * bk on, so the earliest key tiles,
+// which the most causal query tiles reach, start first.
+struct BlockKeys {
+  int bh, t0;
+};
+__device__ __forceinline__ BlockKeys block_keys(int n_bh, int bk) {
+  return BlockKeys{static_cast<int>(blockIdx.x % n_bh), static_cast<int>(blockIdx.x / n_bh) * bk};
 }
 
 template <typename T> struct Mma;
@@ -145,6 +157,12 @@ __device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
                "r"(ok ? 16 : 0)
                : "memory");
 }
+// 4 bytes global -> shared, asynchronously (through L1); zeros where !ok
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -156,13 +174,13 @@ __device__ __forceinline__ void cp_wait() {
 // A block's rows: row r is query head r % g_n of query s0 + r / g_n, for
 // r < bq * g_n (bq = kM / g_n queries; the last kM % g_n rows are unused).
 // Stage the kM rows of src (B, S, H, Dh), zero past S, past the used rows
-// and past Dh.
-template <int kD, typename T>
+// and past Dh. kNT threads share the copies.
+template <int kD, int kNT = kThreads, typename T>
 __device__ __forceinline__ void load_rows_async(T* dst, const T* __restrict__ src, int b,
                                                 int kvh, int s0, int bq, int s_len, int h_n,
                                                 int g_n, int dh) {
   constexpr int kC = kD / 8;
-  for (int c = threadIdx.x; c < kM * kC; c += kThreads) {
+  for (int c = threadIdx.x; c < kM * kC; c += kNT) {
     const int r = c / kC, ch = c % kC;
     const int qi = r / g_n, g = r - qi * g_n, sq = s0 + qi;
     const bool ok = qi < bq && sq < s_len && ch * 8 < dh;
@@ -183,11 +201,11 @@ __device__ __forceinline__ int row_pos(const int* __restrict__ q_pos, int b, int
 
 // Stage keys t0 .. t0 + kBK - 1 of head kvh of src (B, T, KV, Dh), zero
 // past T and past Dh.
-template <int kD, int kBK, typename T>
+template <int kD, int kBK, int kNT = kThreads, typename T>
 __device__ __forceinline__ void load_keys_async(T* dst, const T* __restrict__ src, int b,
                                                 int kvh, int t0, int t_len, int kv, int dh) {
   constexpr int kC = kD / 8;
-  for (int c = threadIdx.x; c < kBK * kC; c += kThreads) {
+  for (int c = threadIdx.x; c < kBK * kC; c += kNT) {
     const int r = c / kC, ch = c % kC, t = t0 + r;
     const bool ok = t < t_len && ch * 8 < dh;
     const T* p = ok ? src + (((long long)b * t_len + t) * kv + kvh) * dh + ch * 8 : src;
@@ -255,6 +273,23 @@ __device__ __forceinline__ Span serial_span(const int* __restrict__ pos, int i0,
   return Span{lo, hi, hi >= 0, !bad};
 }
 
+// pos[i0 .. i0 + n - 1], by one thread (n at run time: a query tile's rows
+// within S)
+__device__ __forceinline__ Span row_span(const int* __restrict__ pos, int i0, int n) {
+  int lo = INT_MAX, hi = -1;
+  bool bad = false;
+  for (int i = 0; i < n; ++i) {
+    const int p = pos[i0 + i];
+    if (p >= 0) {
+      lo = min(lo, p);
+      hi = max(hi, p);
+    } else {
+      bad = true;
+    }
+  }
+  return Span{lo, hi, hi >= 0, !bad};
+}
+
 enum TileState { kDead = 0, kPartial = 1, kFull = 2 };
 
 __device__ __forceinline__ int tile_state(const Span& q, const Span& k, bool causal, int window) {
@@ -300,6 +335,45 @@ struct KeyTiles {
         return j;
       }
       j = base + 32;
+    }
+    return n;
+  }
+};
+
+// The same walk from the key side, for a block that owns a key tile
+// (dkv_tc_kernel): lane i classifies query tile base + i (its positions
+// within S, serially) against the block's key span, so the two walks keep
+// the same (query tile, key tile) pairs.
+struct QueryTiles {
+  Span k;  // the block's key span
+  int base;
+  unsigned live, full;
+
+  __device__ __forceinline__ explicit QueryTiles(Span ks) : k(ks), base(-32), live(0u), full(0u) {}
+
+  // the first live query tile at or after i (n if none); q_pos is the
+  // block's batch lane's row of positions, bq queries per tile
+  __device__ __forceinline__ int next(int i, bool& is_full, const int* __restrict__ q_pos,
+                                      int s_len, int bq, int n, bool causal, int window,
+                                      int lane) {
+    while (i < n) {
+      if (i >= base + 32) {
+        base = i;
+        const int it = i + lane;
+        const int s0 = it * bq;
+        const int st =
+            it < n ? tile_state(row_span(q_pos, s0, min(bq, s_len - s0)), k, causal, window)
+                   : kDead;
+        live = __ballot_sync(0xffffffffu, st != kDead);
+        full = __ballot_sync(0xffffffffu, st == kFull);
+      }
+      const unsigned rest = live >> (i - base);
+      if (rest) {
+        i += __ffs(static_cast<int>(rest)) - 1;
+        is_full = (full >> (i - base)) & 1u;
+        return i;
+      }
+      i = base + 32;
     }
     return n;
   }

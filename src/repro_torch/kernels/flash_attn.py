@@ -8,13 +8,13 @@ Counterpart of ``src/repro/kernels/flash_attn.py``:
   forward is ``csrc/flash_attn_fwd.cu`` (blockwise online softmax, saving
   ``out`` and ``lse``) and whose backward is the two recompute kernels of
   ``csrc/flash_attn_bwd.cu`` (dq; dk and dv summed over the query group).
-  In bf16 and f16 the forward and dq run on the tensor cores and visit
-  only the tiles :func:`live_tiles` keeps (tile sizes :func:`tc_tiles`,
-  the walk's own count :func:`tc_visits`);
-  f32 and dk/dv run on the CUDA cores. Like the JAX custom VJP it saves
-  only ``(q, k, v, out, lse)`` and the positions. Its plain versions are
-  ``flash_attention_ref``'s ops (which also give the lse) and the
-  recompute of ``_bwd_tile`` in torch ops.
+  In bf16 and f16 all three run on the tensor cores and visit only the
+  tiles :func:`live_tiles` keeps (tile sizes :func:`tc_tiles`, the walk's
+  own count :func:`tc_visits`), skipping the elementwise mask on the
+  tiles :func:`full_tiles` marks; f32 runs on the CUDA cores. Like the
+  JAX custom VJP it saves only ``(q, k, v, out, lse)`` and the positions.
+  Its plain versions are ``flash_attention_ref``'s ops (which also give
+  the lse) and the recompute of ``_bwd_tile`` in torch ops.
 * decode (``flash_decode``): ``csrc/flash_decode.cu``, stage 1 and the
   merge as two CUDA kernels behind one C call.
 
@@ -172,7 +172,8 @@ FWD, DQ, DKV = "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv
 
 
 #: the bf16/f16 kernels' libraries and the prefix of their C entry points
-_TC = {FWD: ("flash_attn_fwd", "flash_attn_fwd"), DQ: ("flash_attn_bwd", "flash_attn_dq")}
+_TC = {FWD: ("flash_attn_fwd", "flash_attn_fwd"), DQ: ("flash_attn_bwd", "flash_attn_dq"),
+       DKV: ("flash_attn_bwd", "flash_attn_dkv")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,10 +189,12 @@ def _tc_fn(kernel, what):
 
 
 def tc_tiles(kernel, g, dh):
-    """(queries, keys) per tile of the bf16/f16 ``kernel`` (FWD or DQ) at
-    group size ``g`` and head dim ``dh``, as its library reports them (a
-    block owns all g heads of its queries; the key tile shrinks as Dh
-    grows). Needs the card's toolchain: the library is built to ask it."""
+    """(queries, keys) per tile of the bf16/f16 ``kernel`` (FWD, DQ or DKV)
+    at group size ``g`` and head dim ``dh``, as its library reports them (a
+    query tile holds all g heads of its queries; the key tile shrinks as Dh
+    grows). FWD and DQ blocks own a query tile and walk key tiles, DKV
+    blocks own a key tile and walk query tiles. Needs the card's toolchain:
+    the library is built to ask it."""
     bq, bk = ctypes.c_int(), ctypes.c_int()
     err = _tc_fn(kernel, "tiles")(g, dh, ctypes.byref(bq), ctypes.byref(bk))
     if err != 0:
@@ -200,10 +203,11 @@ def tc_tiles(kernel, g, dh):
 
 
 def tc_visits(kernel, q_pos, kv_pos, kv, g, dh, *, causal, window):
-    """Key tiles the blocks of the bf16/f16 ``kernel`` (FWD or DQ) visit at
-    these positions (cuda int32 q_pos (B, S), kv_pos (T,)), summed over the
-    lanes and the ``kv`` heads: the kernel's own walk over its tiles
-    (``tc::visit_kernel``) run alone, with nothing loaded or multiplied.
+    """(query tile, key tile) pairs the blocks of the bf16/f16 ``kernel``
+    (FWD, DQ or DKV) visit at these positions (cuda int32 q_pos (B, S),
+    kv_pos (T,)), summed over the lanes and the ``kv`` heads: the kernel's
+    own walk over its tiles (``tc::visit_kernel``, ``visit_dkv_kernel``)
+    run alone, with nothing loaded or multiplied.
     ``window`` > 0 is an engaged window, as at the kernels' C calls."""
     if q_pos.dim() != 2 or kv_pos.dim() != 1 or q_pos.device.type != "cuda" \
             or kv_pos.device != q_pos.device:
@@ -231,6 +235,23 @@ def live_tiles(q_pos, kv_pos, bq, bk, *, causal, window):
     it passes ``_tile_valid``. The rule of ``tc::tile_state`` in
     csrc/attn_mma.cuh; ``tc_tiles`` gives the kernels' tile sizes and
     ``tc_visits`` counts what their walk visits."""
+    return _tile_spans(q_pos, kv_pos, bq, bk, causal=causal, window=window)[0]
+
+
+def full_tiles(q_pos, kv_pos, bq, bk, *, causal, window):
+    """Which tiles the bf16/f16 kernels take as full, running them without
+    the elementwise mask: (B, ceil(S / bq), ceil(T / bk)) bool, the other
+    half of ``tc::tile_state``. A live tile is full when every query of it
+    within S and every key of it has a valid position, the key tile ends
+    within T, and ``causal`` max(key) <= min(query), and ``window`` > 0
+    max(query) - min(key) < window: then every such pair passes
+    ``_tile_valid``. (Rows past S are staged as zeros and never stored or
+    summed.)"""
+    return _tile_spans(q_pos, kv_pos, bq, bk, causal=causal, window=window)[1]
+
+
+def _tile_spans(q_pos, kv_pos, bq, bk, *, causal, window):
+    """(live, full) of every tile, as ``tc::tile_state`` classifies them."""
     q_pos = torch.as_tensor(q_pos).long()
     kv_pos = torch.as_tensor(kv_pos).long()
     b, s = q_pos.shape
@@ -238,6 +259,7 @@ def live_tiles(q_pos, kv_pos, bq, bk, *, causal, window):
     nq, nk = -(-s // bq), -(-t // bk)
     qp = torch.nn.functional.pad(q_pos, (0, nq * bq - s), value=-1).reshape(b, nq, bq)
     kp = torch.nn.functional.pad(kv_pos, (0, nk * bk - t), value=-1).reshape(nk, bk)
+    in_s = (torch.arange(nq * bq, device=q_pos.device) < s).reshape(nq, bq)
     far = 1 << 40  # above every position, so no difference overflows
     q_ok, k_ok = qp >= 0, kp >= 0
     q_lo = torch.where(q_ok, qp, far).amin(-1)[:, :, None]
@@ -245,11 +267,14 @@ def live_tiles(q_pos, kv_pos, bq, bk, *, causal, window):
     k_lo = torch.where(k_ok, kp, far).amin(-1)[None, None, :]
     k_hi = torch.where(k_ok, kp, -1).amax(-1)[None, None, :]
     live = q_ok.any(-1)[:, :, None] & k_ok.any(-1)[None, None, :]
+    full = (q_ok | ~in_s).all(-1)[:, :, None] & k_ok.all(-1)[None, None, :]
     if causal:
         live = live & (k_lo <= q_hi)
+        full = full & (k_hi <= q_lo)
     if window:
         live = live & (q_lo - k_hi < window)
-    return live
+        full = full & (q_hi - k_lo < window)
+    return live, live & full
 
 
 def _tile_valid(q_pos, kv_pos, *, causal, window):

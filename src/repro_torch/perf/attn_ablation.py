@@ -1,8 +1,8 @@
 """Where the bf16 training attention kernels spend their time: the
-tensor-core forward and dq, each timed beside copies of itself with one
-piece of work taken out.
+tensor-core forward, dq and dk/dv, each timed beside copies of itself with
+one piece of work taken out.
 
-    PYTHONPATH=src python -m repro_torch.perf.attn_ablation [--out FILE]
+    PYTHONPATH=src python -m repro_torch.perf.attn_ablation [--out FILE] [--kernels dkv ...]
 
 Runs on a CUDA card only. Each variant copies ``kernels/csrc`` into
 ``build/ablation/<kernel>-<variant>/`` with one edit, builds it with the
@@ -49,6 +49,14 @@ _DQ_MMA_DP = ("        M::mma(dp[2 * np], ao, bv[0], bv[1]);\n"
               "        M::mma(dp[2 * np + 1], ao, bv[2], bv[3]);\n")
 _DQ_MMA_DSK = ("          M::mma(acc[2 * np], a[s], bb[0], bb[1]);\n"
                "          M::mma(acc[2 * np + 1], a[s], bb[2], bb[3]);\n")
+_DKV_MMA_KQ = ("      M::mma(st[2 * np], ak, bq4[0], bq4[1]);\n"
+               "      M::mma(st[2 * np + 1], ak, bq4[2], bq4[3]);\n")
+_DKV_MMA_VDO = ("      M::mma(dpt[2 * np], av, bo4[0], bo4[1]);\n"
+                "      M::mma(dpt[2 * np + 1], av, bo4[2], bo4[3]);\n")
+_DKV_MMA_PDO = ("        M::mma(acc_v[2 * np], ap[s], bo4[0], bo4[1]);\n"
+                "        M::mma(acc_v[2 * np + 1], ap[s], bo4[2], bo4[3]);\n")
+_DKV_MMA_DSQ = ("        M::mma(acc_k[2 * np], ad[s], bq4[0], bq4[1]);\n"
+                "        M::mma(acc_k[2 * np + 1], ad[s], bq4[2], bq4[3]);\n")
 _NO_SKIP = ("attn_mma.cuh", "struct KeyTiles",
             "tile_state(q, serial_span<kBK>(kv_pos, jt * kBK, t_len), causal, window)",
             "kPartial")
@@ -76,7 +84,24 @@ KERNELS = {
                     "    const int t0 = j * kBK;\n    full = true;\n"),
         "no_skip": _NO_SKIP,
     }),
+    "dkv": ("flash_attn_bwd", "flash_attn_dkv_launch", {
+        "no_kq": ("flash_attn_bwd.cu", "void dkv_tile(", _DKV_MMA_KQ, ""),
+        "no_vdo": ("flash_attn_bwd.cu", "void dkv_tile(", _DKV_MMA_VDO, ""),
+        "no_pdo": ("flash_attn_bwd.cu", "void dkv_tile(", _DKV_MMA_PDO, ""),
+        "no_dsq": ("flash_attn_bwd.cu", "void dkv_tile(", _DKV_MMA_DSQ, ""),
+        "terms_1": ("flash_attn_bwd.cu", "constexpr int kSplitDkv", "kSplitDkv = 2;",
+                    "kSplitDkv = 1;"),
+        "no_exp": ("flash_attn_bwd.cu", "void dkv_tile(", "expf(x - lse_r)", "(x - lse_r)"),
+        "no_mask": ("flash_attn_bwd.cu", "dkv_tc_kernel(", "    if (full) {\n",
+                    "    if (true) {\n"),
+        "no_skip": ("attn_mma.cuh", "struct QueryTiles",
+                    "tile_state(row_span(q_pos, s0, min(bq, s_len - s0)), k, causal, window)",
+                    "kPartial"),
+    }),
 }
+
+#: pointer arguments of each kernel's C entry
+_N_PTR = {"fwd": 7, "dq": 9, "dkv": 10}
 
 
 def variant_source(kernel, variant, root=OUT_DIR):
@@ -116,9 +141,8 @@ def _build(plan):
         if proc.returncode != 0:
             raise RuntimeError(f"{key}: nvcc exit {proc.returncode}\n{log}")
         fn = getattr(ctypes.CDLL(str(lib)), KERNELS[key[0]][1])
-        n_ptr = 7 if key[0] == "fwd" else 9
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * _N_PTR[key[0]] + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[key] = fn
     return fns
@@ -140,6 +164,7 @@ def _layers(rng, dev, b, s, kv, g, dh, windows, causal):
         delta = torch.sum(cot.float() * o.float(), dim=-1)
         out.append(dict(q=q, k=k, v=v, cot=cot, q_pos=q_pos, kv_pos=kv_pos, lse=lse,
                         delta=delta, kw=kw, o=torch.empty_like(q), lse_o=torch.empty_like(lse),
+                        dk=torch.empty_like(k), dv=torch.empty_like(v),
                         dims=(b, s, s, kv, g, dh)))
     return out
 
@@ -159,7 +184,9 @@ def _pass(kernel, fn, layers):
             else:
                 args = (x["q"].data_ptr(), x["k"].data_ptr(), x["v"].data_ptr(),
                         x["cot"].data_ptr(), x["q_pos"].data_ptr(), x["kv_pos"].data_ptr(),
-                        x["lse"].data_ptr(), x["delta"].data_ptr(), x["o"].data_ptr())
+                        x["lse"].data_ptr(), x["delta"].data_ptr())
+                args += ((x["o"].data_ptr(),) if kernel == "dq"
+                         else (x["dk"].data_ptr(), x["dv"].data_ptr()))
             err = fn(*args, *tail)
             if err != 0:
                 raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
@@ -189,6 +216,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the times as JSON here")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", nargs="+", choices=sorted(KERNELS), default=list(KERNELS),
+                    help="the kernels to ablate (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write("attn_ablation: needs a CUDA card\n")
@@ -198,8 +227,7 @@ def main(argv=None):
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
-    plan = [(kernel, v) for kernel, (_, _, variants) in KERNELS.items()
-            for v in (None, *variants)]
+    plan = [(kernel, v) for kernel in args.kernels for v in (None, *KERNELS[kernel][2])]
     fns = _build(plan)
     rng = np.random.default_rng(args.seed)
     shapes = {
@@ -208,7 +236,8 @@ def main(argv=None):
         "gemma3-1b local": _layers(rng, dev, 4, 1024, 1, 4, 256, [512] * 22, causal=True),
     }
     result = {"device": smi, "ms_per_layer": {}}
-    for kernel, (_, _, variants) in KERNELS.items():
+    for kernel in args.kernels:
+        variants = KERNELS[kernel][2]
         for shape, layers in shapes.items():
             row = {}
             for i, v in enumerate((None, *variants, None)):

@@ -2,14 +2,18 @@
 
 ``flash_attn.live_tiles`` is the rule the kernels use (``tc::tile_state``
 in csrc/attn_mma.cuh) to decide which (query tile, key tile) pairs a block
-visits. On the CPU: every tile it drops holds no valid (query, key) pair
-under the JAX package's Pallas ``_tile_mask``, for any positions (ragged S
-and T, padding -1 on either side, S < T, the group sizes that set the
-query tile) and any of the kernels' key tiles; for ``arange`` positions
-the number of live tiles equals the closed-form causal and window count.
-On the card (``-m cuda``): the tile sizes the kernels' libraries report,
-and their own walk over the tiles (``flash_attn.tc_visits``) visits
-exactly the tiles ``live_tiles`` keeps at those sizes.
+visits, and ``flash_attn.full_tiles`` its other half: the tiles run
+without the elementwise mask. On the CPU: every tile ``live_tiles`` drops
+holds no valid (query, key) pair under the JAX package's Pallas
+``_tile_mask``, and every pair of a full tile within S and T is valid, for
+any positions (ragged S and T, padding -1 on either side, S < T, the group
+sizes that set the query tile) and any of the kernels' key tiles; for
+``arange`` positions the numbers of live and full tiles equal the
+closed-form causal and window counts. On the card (``-m cuda``): the tile
+sizes the kernels' libraries report, and their own walk over the tiles
+(``flash_attn.tc_visits``: the forward's and dq's from the query side,
+dk/dv's from the key side) visits exactly the tiles ``live_tiles`` keeps
+at those sizes.
 """
 
 import numpy as np
@@ -54,6 +58,23 @@ def _check_dropped_tiles_are_empty(q_pos, kv_pos, bq, bk, causal, window):
     assert live.shape == pairs.shape and live.dtype == torch.bool
     assert int(pairs[~live].sum()) == 0, "a dropped tile holds a valid pair"
     return live, pairs
+
+
+def _check_full_tiles_are_all_valid(q_pos, kv_pos, bq, bk, causal, window):
+    """Every (query within S, key within T) pair of a full tile is valid:
+    the kernels run such a tile with no elementwise mask."""
+    full = flash_attn.full_tiles(q_pos, kv_pos, bq, bk, causal=causal, window=window)
+    live = flash_attn.live_tiles(q_pos, kv_pos, bq, bk, causal=causal, window=window)
+    pairs = _pairs_per_tile(q_pos, kv_pos, bq, bk, causal, window)
+    b, s = q_pos.shape
+    t = kv_pos.shape[0]
+    rows = (torch.arange(pairs.shape[1] * bq) < s).reshape(-1, bq).sum(-1)
+    keys = (torch.arange(pairs.shape[2] * bk) < t).reshape(-1, bk).sum(-1)
+    size = (rows[:, None] * keys[None, :]).expand_as(pairs)
+    assert full.shape == pairs.shape and full.dtype == torch.bool
+    assert bool((pairs[full] == size[full]).all()), "a full tile holds an invalid pair"
+    assert not bool((full & ~live).any()), "a full tile the walk skips"
+    return full
 
 
 def _positions(b, s, t, *, q_pad=(), k_pad=()):
@@ -111,6 +132,30 @@ def _closed_form(s, t, bq, bk, causal, window):
     return total
 
 
+@pytest.mark.parametrize("bk", KEY_TILES)
+@pytest.mark.parametrize("case", CASES)
+def test_full_tiles_hold_only_valid_pairs(case, bk):
+    b, s, t, g, causal, window, q_pad, k_pad = case
+    q_pos, kv_pos = _positions(b, s, t, q_pad=q_pad, k_pad=k_pad)
+    full = _check_full_tiles_are_all_valid(q_pos, kv_pos, ROWS // g, bk, causal, window)
+    if not (q_pad or k_pad or t % bk):  # no padding: some tile is full
+        assert bool(full.any())
+
+
+def _closed_form_full(s, t, bq, bk, causal, window):
+    """Full tiles for the positions of ``_closed_form``: key tile j lies
+    within T, and (causal) its last key is at most lo, and its first key
+    lies within the window of hi."""
+    off = t - s
+    total = 0
+    for i in range(-(-s // bq)):
+        lo, hi = off + i * bq, off + min((i + 1) * bq, s) - 1
+        for j in range(t // bk):
+            total += (not causal or (j + 1) * bk - 1 <= lo) and (not window
+                                                                 or hi - j * bk < window)
+    return total
+
+
 @pytest.mark.parametrize("s,t,g,causal,window", [
     (1024, 1024, 4, True, 0),
     (1024, 1024, 4, True, 512),
@@ -125,6 +170,8 @@ def test_live_count_equals_the_closed_form(s, t, g, causal, window, bk):
     q_pos, kv_pos = _positions(2, s, t)
     live = flash_attn.live_tiles(q_pos, kv_pos, bq, bk, causal=causal, window=window)
     assert int(live.sum()) == 2 * _closed_form(s, t, bq, bk, causal, window)
+    full = flash_attn.full_tiles(q_pos, kv_pos, bq, bk, causal=causal, window=window)
+    assert int(full.sum()) == 2 * _closed_form_full(s, t, bq, bk, causal, window)
 
 
 def test_gemma_global_layer_visits_about_half_its_tiles():
@@ -174,23 +221,34 @@ def test_dropped_tiles_hold_no_valid_pair_property(layout):
     _check_dropped_tiles_are_empty(q_pos, kv_pos, bq, bk, causal, window)
 
 
+@settings(max_examples=60, deadline=None)
+@given(_layouts())
+def test_full_tiles_hold_only_valid_pairs_property(layout):
+    """Any positions, monotone or not, with padding scattered on both sides."""
+    b, s, t, bq, bk, causal, window, seed, monotone = layout
+    q_pos, kv_pos = _random_positions(np.random.default_rng(seed), b, s, t, monotone)
+    _check_full_tiles_are_all_valid(q_pos, kv_pos, bq, bk, causal, window)
+
+
 def test_tc_helpers_refuse_what_no_kernel_takes():
-    """dk/dv has no tensor-core kernel, and the walk takes positions on
-    the card only: both refused before any library is built."""
+    """A kernel with no tensor-core route (the decode kernel) has no tiles
+    to report, and the walk takes positions on the card only: both refused
+    before any library is built."""
     with pytest.raises(ValueError, match="no tensor-core kernel"):
-        flash_attn.tc_tiles(flash_attn.DKV, 1, 64)
+        flash_attn.tc_tiles("flash_decode", 1, 64)
     q_pos, kv_pos = _positions(1, 8, 8)
     with pytest.raises(ValueError, match="cuda tensors"):
         flash_attn.tc_visits(flash_attn.FWD, q_pos, kv_pos, 1, 1, 64, causal=True, window=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", [flash_attn.FWD, flash_attn.DQ])
+@pytest.mark.parametrize("kernel", [flash_attn.FWD, flash_attn.DQ, flash_attn.DKV])
 def test_tc_tiles_follow_the_kernels(kernel):
-    """On the card: the library's tile sizes, and its walk over the key
-    tiles (run alone) visits exactly the tiles ``live_tiles`` keeps at
-    those sizes, summed over lanes and KV heads, at every case above and
-    at random positions, for each head dim the kernels are built for."""
+    """On the card: the library's tile sizes, and its walk over the tiles
+    (run alone; dk/dv's from the key side) visits exactly the tiles
+    ``live_tiles`` keeps at those sizes, summed over lanes and KV heads, at
+    every case above and at random positions, for each head dim the
+    kernels are built for."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels' walk runs only there")
     dev = torch.device("cuda", 0)

@@ -56,9 +56,9 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("case", CASES)
-def test_flash_attention_kernels_match_plain(dev, case, dtype):
+def _case_inputs(case, dtype, dev):
+    """q, k, v, the output's cotangent, q_pos, kv_pos and the options of a
+    CASES entry, from a seed of its own."""
     B, S, T, KV, G, Dh, causal, window, softcap, padded = case
     rng = np.random.default_rng(S * 7 + Dh)
     q = _randn(rng, (B, S, KV * G, Dh), dtype, dev)
@@ -75,6 +75,13 @@ def test_flash_attention_kernels_match_plain(dev, case, dtype):
         # the plain forward drops padded keys on its chunked path only
         # (make_mask keeps them, as the JAX reference's does)
         kw["chunk"] = 64
+    return q, k, v, cot, q_pos, kv_pos, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", CASES)
+def test_flash_attention_kernels_match_plain(dev, case, dtype):
+    q, k, v, cot, q_pos, kv_pos, kw = _case_inputs(case, dtype, dev)
     fwd_tol, grad_tol = TOL[dtype]
 
     def run(backend):
@@ -94,6 +101,25 @@ def test_flash_attention_kernels_match_plain(dev, case, dtype):
         err = (a.float() - b.float()).abs().max().item()
         scale = max(1.0, b.float().abs().max().item()) if name != "out" else 1.0
         assert err <= tol * scale, f"{name}: {err:.3e} > {tol} x {scale:.2f}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", CASES)
+def test_flash_attention_backward_is_deterministic(dev, case, dtype):
+    """The tensor-core dq and dk/dv sum every tile and, for dk/dv, every
+    head of the query group inside one block, in a fixed order and with no
+    atomics: two runs on the same inputs give the same bits."""
+    q, k, v, cot, q_pos, kv_pos, kw = _case_inputs(case, dtype, dev)
+    kw.pop("chunk", None)
+    q_pos, kv_pos = q_pos.to(torch.int32), kv_pos.to(torch.int32)
+    out, lse = flash_attn._fwd_cuda(q, k, v, q_pos, kv_pos, **kw)
+    delta = torch.sum(cot.float() * out.float(), dim=-1)
+    first = flash_attn._bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, cot, **kw)
+    second = flash_attn._bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, cot, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.isfinite(a.float()).all(), name
+        assert torch.equal(a, b), f"{name}: {int((a != b).sum())} elements differ"
 
 
 def test_flash_attention_kernel_lse_and_masked_rows(dev):
