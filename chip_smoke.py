@@ -17,12 +17,14 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    forward, dq and dk/dv kernels must have some.
 3. decode kernel: ``flash_decode`` against its plain PyTorch version on
    the card at gemma3-1b shapes (B in {1, 4, 8}, KV=1, G=4, Dh=256, T in
-   {16, 128, 1024, 2048}, window on and off, softcap 0 and 50, split
-   counts 1, 3, 7 and the heuristic's), f32 within 1e-5 and bf16 within
+   {16, 128, 1024, 2048}, window on and off, softcap 0 and 50, cluster
+   sizes (splits) 1, 3, 7 and the plan's), f32 within 1e-5 and bf16 within
    2e-2 abs, and the 2-byte dtypes within half an ulp (+1e-5) of the plain
    version in f32 on the same inputs; then the kernel, plain and library
    (``scaled_dot_product_attention``) times over one pass of 26 layers at
-   the serving shape.
+   the serving shape, and per local and global layer at buckets 256, 512
+   and 1024 (bf16) and 1024 (f32), with the 1024 bucket under cluster
+   sizes 4, 8 and 16.
 4. training kernels: the flash-attention forward and its dq and dk/dv
    backward kernels through autograd, at bert-base's shape, at a
    gemma-like one (G 4, KV 1, Dh 256, window, softcap, causal, ragged S
@@ -31,7 +33,8 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    + 1e-4 relative gradients) and bf16 (2e-2 + 2e-2 relative), the bf16
    results also within half an ulp (plus the f32 tolerance) of the plain
    version in f32 on the same inputs, and the bf16 gradients of two runs
-   bitwise equal;
+   bitwise equal; a second derivative through the attention and CE
+   kernels raises (first order only), through their plain versions not;
    ``adam_adapt`` at the embedding's 23,440,896 elements, the stacked MLP
    weights' 28,311,552 and a ragged size (rtol 1e-5, sum of squares 1e-4);
    ``weighted_ce`` forward and backward at gemma3-1b's LM loss (the (4,
@@ -54,7 +57,8 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    to the serial ``greedy_generate``, request by request.
 6. serve bf16: the config's own dtype, 16 requests of 256-960 tokens;
    qps, TTFT/TPOT, memory, and ``flash_decode`` launches = 26 x decode
-   steps; a ``torch.profiler`` trace of one decode step goes to DIR.
+   steps; a ``torch.profiler`` trace of one decode step goes to DIR, with
+   its kernel launches and ``flash_decode``'s share of its device time.
 7. train f32: bert-base at full width and depth in f32, three SAMA meta
    steps, each from one state through the kernels and again with every
    kernel forced to its plain version (``dispatch.plain_everywhere``, a
@@ -97,10 +101,11 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
 
-#: H100 SXM (NVIDIA data sheet): HBM rate and dense bf16 tensor-core peak
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
+# the card's rates and graph-replay timing, shared with the perf tools
+from repro_torch.perf.timers import HBM_BYTES_PER_S, PEAK_OPS_PER_S, graph_ms  # noqa: E402
+
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SEED = 0
@@ -129,17 +134,6 @@ def median_ms(fn, reps=5, iters=10):
     """``time_ms(fn, iters)`` repeated ``reps`` times: (median, min, max)."""
     times = sorted(time_ms(fn, iters) for _ in range(reps))
     return times[reps // 2], times[0], times[-1]
-
-
-def graph_ms(fn, iters=20):
-    """Device time of ``fn()``: its launches captured once in a CUDA graph
-    and replayed, so the host's launch overhead drops out."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return time_ms(graph.replay, iters)
 
 
 # ---------------------------------------------------------------------------
@@ -201,9 +195,10 @@ def phase_build():
     t0 = time.perf_counter()
     results = build.build_all()
     secs = time.perf_counter() - t0
-    per = {}
+    per, ptxas = {}, {}
     for name, path, nvcc_out, done in results:
         per[name] = done
+        ptxas[name] = []
         log(f"build: {name} -> {os.path.relpath(path, HERE)} ({done:.2f}s)")
         kernel = ""
         for line in nvcc_out.splitlines():
@@ -211,6 +206,7 @@ def phase_build():
                 kernel = line.split("'")[1][:90] if "'" in line else line.strip()
             elif "registers" in line or "spill" in line or "error" in line:
                 log(f"  ptxas: {kernel}: {line.strip()}")
+                ptxas[name].append(f"{kernel}: {line.strip()}")
         if name in MMA_KERNELS:
             counts = _sass_mma_counts(path)
             for fn, n in counts.items():
@@ -224,7 +220,7 @@ def phase_build():
                     if n == 0:
                         raise AssertionError(f"{fn}: no tensor-core instruction in its SASS")
     log(f"build_seconds: {secs:.2f} (all sources at once)")
-    return per
+    return per, ptxas
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +315,18 @@ def phase_kernel_check(dev):
             worst_vs_f32 = max(worst_vs_f32, _vs_f32(flash_attn, got, q, k, v, pos, True,
                                                      kw, f"KV={kv} G={g} Dh={dh}"))
         n += 1
+    # the blocks' shares of the visible rows, by the library's own
+    # arithmetic, are the ones the CPU tests hold (flash_attn.decode_shares)
+    n_shares = 0
+    for t, pos, window in zip(rng.integers(1, 4096, 300), rng.integers(0, 5000, 300),
+                              rng.integers(0, 1024, 300)):
+        for cluster in (1, 3, 7, 8, 16):
+            args = (int(pos), int(t), int(window), cluster)
+            if flash_attn.decode_kernel_shares(*args) != flash_attn.decode_shares(*args):
+                raise AssertionError(f"flash_decode: the library's shares differ from "
+                                     f"decode_shares at (pos, T, window, cluster)={args}")
+            n_shares += 1
+    log(f"kernel_check: flash_decode block shares equal decode_shares in {n_shares} cases")
     log(f"kernel_check: flash_decode vs plain, {n} cases, max_err_f32="
         f"{worst[torch.float32]:.3e} (tol 1e-5), max_err_bf16="
         f"{worst[torch.bfloat16]:.3e} (tol 2e-2); 2-byte dtypes vs plain in f32 "
@@ -328,73 +336,51 @@ def phase_kernel_check(dev):
 
 def phase_kernel_time(dev, cfg, slots, t):
     """One pass over the model's layers (5:1 local:global, each layer its
-    own cache, 26 x 4 MB > the 50 MB L2) at the serving shape."""
-
-    import torch.nn.functional as F
-
+    own cache, 26 x 4 MB > the 50 MB L2) at the serving shape; then the
+    local and the global layer apart at buckets 64 to 1024 in bf16 and
+    1024 in f32, each beside SDPA and its bound, and the 1024 bucket under
+    several cluster sizes (``repro_torch.perf.decode_time``). Every pass
+    must launch one kernel per layer, by the profiler's count."""
     from repro_torch.kernels import flash_attn
+    from repro_torch.perf import decode_time
 
-    rng = np.random.default_rng(SEED + 1)
     dtype = torch.bfloat16
-    kv, g, dh = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
-    flags = [k == "local" for k in cfg.layer_kinds]
-    pos_np = rng.integers(512, t, size=slots).astype(np.int32)
-    pos = torch.from_numpy(pos_np).to(dev)[:, None]
-    layers = [_decode_inputs(rng, slots, t, dtype, dev, kv, g, dh) for _ in flags]
-    kw = dict(softcap=cfg.attn_logit_softcap, window=cfg.sliding_window)
-
-    def run(backend):
-        for (q, k, v), local in zip(layers, flags):
-            flash_attn.flash_decode(q, k, v, pos, local, backend=backend, **kw)
-
-    # library yardstick: one scaled_dot_product_attention call with the same mask
-    kpos = torch.arange(t, device=dev)
-    masks = {}
-    for local in (True, False):
-        m = kpos[None, :] <= pos
-        if local:
-            m = m & (pos - kpos[None, :] < cfg.sliding_window)
-        masks[local] = m[:, None, None, :]  # (B, 1, 1, T)
-    lib_in = [(q.transpose(1, 2), k.transpose(1, 2).contiguous(),
-               v.transpose(1, 2).contiguous(), masks[local])
-              for (q, k, v), local in zip(layers, flags)]
-
-    def run_library():
-        for q, k, v, m in lib_in:
-            F.scaled_dot_product_attention(q, k, v, attn_mask=m, enable_gqa=True)
-
-    n = len(flags)
-    # device times (graph replay), kernel twice for the spread; and the
-    # kernel's time as the model calls it, host launch overhead included
-    kernel_ms = graph_ms(lambda: run(None)) / n
-    plain_ms = graph_ms(lambda: run("plain")) / n
-    library_ms = graph_ms(run_library) / n
-    kernel_ms_2 = graph_ms(lambda: run(None)) / n
-    eager_ms = time_ms(lambda: run(None)) / n
-
-    # least time for the same work: each input byte read once, each output
-    # written once, K/V counted for the rows this data needs
-    item = torch.finfo(dtype).bits // 8
-    rows = 0
-    for local in flags:
-        for p in pos_np:
-            seen = min(int(p) + 1, t)
-            rows += min(seen, cfg.sliding_window) if local else seen
-    kv_bytes = rows * kv * dh * item * 2
-    qo_bytes = n * 2 * slots * kv * g * dh * item + n * slots * 4
-    ops = rows * kv * g * dh * 4  # q.k and p.v, a multiply and an add each
-    bytes_ms = (kv_bytes + qo_bytes) / HBM_BYTES_PER_S * 1e3 / n
-    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3 / n
-    out = {
-        "ms": kernel_ms, "ms_repeat": kernel_ms_2, "ms_eager": eager_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "shape": {"B": slots, "T": t, "KV": kv, "G": g, "Dh": dh, "dtype": "bfloat16",
-                  "positions": pos_np.tolist(), "layers": n},
-    }
+    kv, dh = cfg.num_kv_heads, cfg.head_dim
+    out = decode_time.time_case(flash_attn, cfg, dev, cfg.layer_kinds, t, dtype, slots=slots,
+                                seed=SEED + 1)
     log(f"kernel_time: flash_decode per layer at B={slots} T={t} bf16: kernel_ms="
-        f"{kernel_ms:.4f} (repeat {kernel_ms_2:.4f}, eager {eager_ms:.4f}) plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={out['bound_ms']:.5f} ({out['bound_by']})")
+        f"{out['ms']:.4f} (repeat {out['ms_repeat']:.4f}, eager {out['ms_eager']:.4f}) "
+        f"plain_ms={out['plain_ms']:.4f} library_ms={out['library_ms']:.4f} "
+        f"bound_ms={out['bound_ms']:.5f} ({out['bound_by']}) "
+        f"launches_per_layer={out['launches_per_layer']}")
+    torch.cuda.empty_cache()
+    out["by_case"] = []
+    for kind, bucket, dt in decode_time.CASES:
+        splits = decode_time.SPLITS if (bucket == t and dt == dtype) else ()
+        case = decode_time.time_case(flash_attn, cfg, dev, kind, bucket, dt, slots=slots,
+                                     seed=SEED + 5, splits=splits)
+        log(f"kernel_time: flash_decode {kind} layer B={slots} T={bucket} {case['dtype']}: "
+            f"kernel_ms={case['ms']:.5f} (repeat {case['ms_repeat']:.5f}) "
+            f"plain_ms={case['plain_ms']:.5f} library_ms={case['library_ms']:.5f} "
+            f"bound_ms={case['bound_ms']:.5f} ({case['bound_by']}) "
+            f"launches_per_layer={case['launches_per_layer']}"
+            + (f" by cluster size {json.dumps(case['ms_by_splits'])}" if splits else ""))
+        out["by_case"].append(case)
+        torch.cuda.empty_cache()
+    # whole launches per call: the profiler has been seen to drop one event
+    # of a pass (51 of 52 launches once), never to add one
+    out["kernels_per_call"] = round(out["launches_per_layer"])
+    for case in [out] + out["by_case"]:
+        if round(case["launches_per_layer"]) != 1:
+            raise AssertionError(f"flash_decode: {case['launches_per_layer']} kernel launches "
+                                 f"per call at {case['kind']} T={case['T']} {case['dtype']}, "
+                                 "not 1")
+    limit = flash_attn.decode_max_cluster(dh, dtype)
+    out["cluster"] = {"global": flash_attn.decode_cluster(t, slots * kv, max_cluster=limit),
+                      "local": flash_attn.decode_cluster(min(t, cfg.sliding_window), slots * kv,
+                                                         max_cluster=limit),
+                      "card_limit": limit}
+    log(f"kernel_time: flash_decode cluster sizes at B={slots} T={t}: {out['cluster']}")
     return out
 
 
@@ -487,6 +473,7 @@ def profile_step(model, params, scfg, prompts, out_dir):
 
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import dispatch
     from repro_torch.serve import ContinuousBatcher, Request
 
     b = ContinuousBatcher(model, params, scfg)
@@ -500,19 +487,25 @@ def profile_step(model, params, scfg, prompts, out_dir):
         t0 = time.perf_counter()
         b.harvest(b.dispatch())
         walls.append((time.perf_counter() - t0) * 1e3)
+    calls = dispatch.launches("flash_decode")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         b.harvest(b.dispatch())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    calls = dispatch.launches("flash_decode") - calls
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "decode_step_trace.json"))
-    rows = []  # device kernels (aten:: rows repeat their kernels' time)
+    # device kernels and copies: aten:: rows repeat their kernels' time, and
+    # the runtime's own rows (cudaLaunchKernel, Activity Buffer Request) are
+    # host calls, not kernels (1,961 cudaLaunchKernel counts in one step
+    # once, with 12 us of device time)
+    rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0 and not e.key.startswith("aten::"):
+        if dev_us > 0 and not e.key.startswith(("aten::", "cuda", "Activity Buffer")):
             rows.append((e.key, dev_us, e.count))
     rows.sort(key=lambda r: -r[1])
     total_dev_ms = sum(r[1] for r in rows) / 1e3
@@ -521,11 +514,20 @@ def profile_step(model, params, scfg, prompts, out_dir):
             f.write(f"{us:12.1f} us  {count:5d}x  {key}\n")
     top = [{"name": k[:80], "us": round(us, 1), "count": c} for k, us, c in rows[:12]]
     step_ms = float(np.median(walls))
+    decode_rows = [(us, c) for k, us, c in rows if "decode_kernel" in k]
+    decode_ms = sum(us for us, _ in decode_rows) / 1e3
     prof_out = {"step_wall_ms": step_ms, "step_wall_ms_all": walls,
                 "profiled_wall_ms": wall_ms, "device_ms": total_dev_ms,
                 "device_busy_share": total_dev_ms / step_ms,
-                "kernel_launches": sum(c for _, _, c in rows), "top": top}
+                "kernel_launches": sum(c for _, _, c in rows),
+                "flash_decode_ms": decode_ms,
+                "flash_decode_calls": calls,
+                "flash_decode_launches": sum(c for _, c in decode_rows),
+                "flash_decode_share_of_device": decode_ms / total_dev_ms, "top": top}
     log("step_profile: " + json.dumps(prof_out))
+    if calls == 0 or round(prof_out["flash_decode_launches"] / calls) != 1:
+        raise AssertionError(f"flash_decode: {prof_out['flash_decode_launches']} kernel "
+                             f"launches in the profiled step for {calls} calls, not one each")
     return prof_out
 
 
@@ -589,14 +591,15 @@ def phase_train_kernel_check(dev):
             q, k, v, cot, q_pos, kv_pos = _attn_inputs(rng, dev, dtype, b, s, t, kv, g, dh,
                                                        padded)
 
-            def run(backend):
-                leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-                out = flash_attn.flash_attention(*leaves, q_pos, kv_pos, True, backend=backend,
-                                                 **plain_kw)
-                (out.float() * cot.float()).sum().backward()
-                return [out.detach()] + [x.grad for x in leaves]
-
-            got, plain = run(None), run("plain")
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = flash_attn.flash_attention(*leaves, q_pos, kv_pos, True, **plain_kw)
+            (out.float() * cot.float()).sum().backward()
+            got = [out.detach()] + [x.grad for x in leaves]
+            del out, leaves
+            # the kernels' two passes in plain versions (the plain forward,
+            # flash_attention_bwd_plain from its lse)
+            plain = flash_attn.flash_attention_plain_vjp(q, k, v, q_pos, kv_pos, cot,
+                                                         **plain_kw)
             torch.cuda.synchronize()
             for i, (a, p) in enumerate(zip(got, plain)):
                 kname = names[min(i, 2)]
@@ -669,6 +672,45 @@ def phase_train_kernel_check(dev):
         f"max_abs_err={adam_worst:.3e} (rtol 1e-5, atol 1e-7; sum of squares rtol 1e-4)")
     dispatch.reset_launches()
     return worst, share_vs_f32, adam_worst
+
+
+def phase_second_order_check(dev):
+    """A second derivative through the CUDA attention and CE kernels raises
+    (their backward is first order only: once_differentiable), as the JAX
+    package's Pallas path does; the plain route takes one (its ops under
+    autograd) and stays finite."""
+    from repro_torch.kernels import dispatch, flash_attn, weighted_ce as wce
+
+    rng = np.random.default_rng(SEED + 13)
+    q = _randn(rng, (2, 128, 4, 64), torch.bfloat16, dev).requires_grad_(True)
+    k, v = (_randn(rng, (2, 128, 1, 64), torch.bfloat16, dev).requires_grad_(True)
+            for _ in range(2))
+    pos = torch.arange(128, dtype=torch.int32, device=dev)
+    x = _randn(rng, (16, 8192), torch.float32, dev).requires_grad_(True)
+    t = torch.from_numpy(rng.integers(0, 8192, 16).astype(np.int32)).to(dev)
+    cases = {
+        "flash_attention": (lambda backend: flash_attn.flash_attention(
+            q, k, v, pos[None].expand(2, -1), pos, backend=backend).float().square().sum(),
+            (q, k, v)),
+        "weighted_ce": (lambda backend: wce.cross_entropy(x, t, backend=backend).square().sum(),
+                        (x,)),
+    }
+    dispatch.reset_launches()
+    for name, (loss, leaves) in cases.items():
+        grads = torch.autograd.grad(loss(None), leaves, create_graph=True)
+        try:
+            torch.autograd.grad(sum(g.float().square().sum() for g in grads), leaves)
+        except RuntimeError as e:
+            log(f"second_order: {name} on the CUDA kernels raises: {str(e).splitlines()[0][:100]}")
+        else:
+            raise AssertionError(f"{name}: a second derivative through the CUDA kernels "
+                                 "returned instead of raising")
+        grads = torch.autograd.grad(loss("plain"), leaves, create_graph=True)
+        hv = torch.autograd.grad(sum(g.float().square().sum() for g in grads), leaves)
+        if not all(torch.isfinite(h.float()).all() for h in hv):
+            raise AssertionError(f"{name}: the plain route's second derivative is not finite")
+        log(f"second_order: {name} on the plain route: finite")
+    dispatch.reset_launches()
 
 
 def _bound(nbytes, ops, dtype):
@@ -1630,7 +1672,6 @@ def main():
         return out
 
     phase_device()
-    sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch import configs
     from repro_torch.kernels import flash_attn, weighted_ce as wce
     from repro_torch.models import Model
@@ -1639,18 +1680,19 @@ def main():
     dev = torch.device("cuda", 0)
     cfg = configs.get_config("gemma3-1b")
     bert = configs.get_config("bert-base")
-    build_s = timed("build", phase_build)
+    build_s, ptxas = timed("build", phase_build)
 
     # phase 3: the decode kernel
     entry = {"name": "flash_decode", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/flash_attn.py:490",
-             "build_seconds": build_s["flash_decode"]}
+             "build_seconds": build_s["flash_decode"], "ptxas": ptxas["flash_decode"]}
     worst, worst_vs_f32 = timed("decode_kernel_check", phase_kernel_check, dev)
     timing = timed("decode_kernel_time", phase_kernel_time, dev, cfg, slots=4, t=1024)
     # "max_abs_err" and "ms" are the keys every kernels line carries; they
     # are the bf16 error and the kernel time, which the serving path's own
-    # names max_err_bf16 and kernel_ms repeat
+    # names max_err_bf16 and kernel_ms repeat; kernels_per_call is the
+    # profiler's count over the serving-shape pass
     entry.update({"max_abs_err": worst[torch.bfloat16], "max_err_f32": worst[torch.float32],
                   "max_err_bf16": worst[torch.bfloat16],
                   "bf16_vs_f32_share_of_bound": worst_vs_f32,
@@ -1658,6 +1700,7 @@ def main():
 
     # phase 4: the training kernels
     t_worst, t_share, adam_worst = timed("train_kernel_check", phase_train_kernel_check, dev)
+    timed("second_order_check", phase_second_order_check, dev)
     ce_worst = timed("ce_kernel_check", phase_ce_kernel_check, dev)
     adapt_worst = timed("adapt_kernel_check", phase_adapt_kernel_check, dev)
     t_time = timed("train_kernel_time", phase_train_kernel_time, dev, bert, batch=48, seq=128)

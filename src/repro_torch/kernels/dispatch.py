@@ -75,6 +75,34 @@ def plain_everywhere() -> Iterator[None]:
         _PLAIN_DEPTH -= 1
 
 
+class _FirstOrderOnly(torch.autograd.Function):
+    """Passes a kernel backward's gradients through unchanged; taking a
+    derivative of them raises, naming the kernel."""
+
+    @staticmethod
+    def forward(ctx, name, n_grads, *tensors):
+        ctx.name = name
+        return tuple(g.view_as(g) for g in tensors[len(tensors) - n_grads:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(f"{ctx.name}: a second derivative through the CUDA kernels is not "
+                           "supported: their backward is first order only (the plain route, "
+                           "backend='plain' or CPU tensors, differentiates to any order)")
+
+
+def first_order_only(name: str, inputs, grads):
+    """``grads``, the gradients a kernel's backward computed for ``inputs``,
+    tied to ``inputs`` so that differentiating them again raises instead of
+    returning a wrong value (the kernel's recompute treats what its forward
+    saved as constants). A no-op unless the backward runs with
+    ``create_graph=True``."""
+
+    if not torch.is_grad_enabled():
+        return tuple(grads)
+    return _FirstOrderOnly.apply(name, len(grads), *inputs, *grads)
+
+
 def count_launch(name: str) -> None:
     _LAUNCHES[name] += 1
 

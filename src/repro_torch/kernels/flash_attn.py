@@ -1,12 +1,13 @@
 """Flash attention of the port: the CUDA kernels' wrappers, their plain
-PyTorch versions and, for decode, the split-count heuristic and the
-stage-2 merge.
+PyTorch versions and, for decode, the cluster plan, the row shares and
+the split merge.
 
 Counterpart of ``src/repro/kernels/flash_attn.py``:
 
-* training (``flash_attention``): a ``torch.autograd.Function`` whose
-  forward is ``csrc/flash_attn_fwd.cu`` (blockwise online softmax, saving
-  ``out`` and ``lse``) and whose backward is the two recompute kernels of
+* training (``flash_attention``): on CUDA tensors a
+  ``torch.autograd.Function``, first order only, whose forward is
+  ``csrc/flash_attn_fwd.cu`` (blockwise online softmax, saving ``out``
+  and ``lse``) and whose backward is the two recompute kernels of
   ``csrc/flash_attn_bwd.cu`` (dq; dk and dv summed over the query group).
   In bf16 and f16 all three run on the tensor cores and visit only the
   tiles :func:`live_tiles` keeps (tile sizes :func:`tc_tiles`, the walk's
@@ -14,9 +15,13 @@ Counterpart of ``src/repro/kernels/flash_attn.py``:
   tiles :func:`full_tiles` marks; f32 runs on the CUDA cores. Like the
   JAX custom VJP it saves only ``(q, k, v, out, lse)`` and the positions.
   Its plain versions are ``flash_attention_ref``'s ops (which also give
-  the lse) and the recompute of ``_bwd_tile`` in torch ops.
-* decode (``flash_decode``): ``csrc/flash_decode.cu``, stage 1 and the
-  merge as two CUDA kernels behind one C call.
+  the lse) and the recompute of ``_bwd_tile`` in torch ops. CPU tensors
+  take the plain forward's ops under autograd, differentiable to any
+  order, as the JAX package's ``ref`` twin.
+* decode (``flash_decode``): ``csrc/flash_decode.cu``, one launch whose
+  thread-block clusters split each lane's visible rows
+  (:func:`decode_shares`) and merge the splits in shared memory (the math
+  of :func:`merge_partials`).
 
 One combination is refused: ``causal=False`` with an engaged window. The
 JAX ``ref`` twin drops the window when non-causal while its Pallas kernel
@@ -40,26 +45,53 @@ _TINY = 1e-30
 #: streaming multiprocessors of an H100 SXM
 NUM_SMS = 132
 
-#: the kernels' limits (csrc/flash_decode.cu, csrc/attn_common.cuh: G up to 8, kMaxDh)
+#: the kernels' limits (csrc/attn_common.cuh: kMaxGroup, kMaxDh)
 MAX_GROUP = 8
 MAX_HEAD_DIM = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def pick_splits(t: int, bh: int, *, min_split: int = 32,
-                target_blocks: int = 2 * NUM_SMS, max_splits: int = 64) -> int:
-    """KV split count for ``bh = B * KV`` rows over a cache of ``t`` tokens.
+#: a decode block's share of the visible rows is a multiple of this
+#: (csrc/flash_decode.cu kShareRows; ``decode_kernel_shares`` holds the
+#: kernel's own arithmetic)
+SHARE_ROWS = 16
 
-    Enough ``(split, row)`` blocks for about two on each of the card's 132
-    SMs, but no split shorter than ``min_split`` rows (a block would spend
-    more on its set-up and its partial output than on its rows) and no more
-    than ``max_splits`` (the merge reads every split). Serving runs B * KV =
-    slots x 1 = 4 to 8 rows, so the splits, not the lanes, fill the card.
-    """
-    by_len = max(1, math.ceil(t / min_split))
-    want = max(1, math.ceil(target_blocks / max(bh, 1)))
-    return max(1, min(by_len, want, max_splits))
+
+def decode_cluster(rows: int, bh: int, *, max_cluster: int) -> int:
+    """Cluster size (splits) of the decode kernel for ``bh = B * KV``
+    (lane, KV head) pairs that each see up to ``rows`` rows (the bucket
+    length, or the window on a local layer), at most ``max_cluster`` (what
+    the card schedules: :func:`decode_max_cluster`).
+
+    A cluster's blocks split a lane's visible rows and merge through each
+    other's shared memory, so more blocks cost a longer merge. No block
+    gets fewer than 64 rows (one chunk of the 2-byte kernel: at 32 rows a
+    block the local layer measured no faster), and splitting stops once the
+    pairs fill half the card's SMs; a block holds ~160 KB of shared
+    memory, so one runs per SM. Serving runs B * KV = slots x 1 = 4 to 8
+    pairs, so the splits fill the card."""
+    by_rows = max(1, math.ceil(rows / 64))
+    want = max(1, math.ceil(NUM_SMS / 2 / max(bh, 1)))
+    return max(1, min(by_rows, want, max_cluster))
+
+
+def decode_shares(pos: int, t: int, window: int, cluster: int):
+    """[beg, end) of each block of a ``cluster`` over the rows a lane at
+    position ``pos`` sees, [lo, hi) = [max(0, pos - window + 1), min(pos +
+    1, t)) (``window`` > 0 engaged): an equal share, rounded up to
+    ``SHARE_ROWS`` rows, in rank order; the last blocks' shares may be
+    empty. What ``block_share`` in csrc/flash_decode.cu computes on the
+    card; :func:`decode_kernel_shares` runs that."""
+    hi = max(0, min(pos + 1, t))
+    lo = min(hi, max(0, pos - window + 1)) if window > 0 else 0
+    share = -(-(hi - lo) // cluster)  # ceil
+    per = -(-share // SHARE_ROWS) * SHARE_ROWS
+    shares = []
+    for rank in range(cluster):
+        beg = min(hi, lo + rank * per)
+        shares.append((beg, min(hi, beg + per)))
+    return shares
 
 
 def merge_partials(o, lse):
@@ -89,8 +121,11 @@ def flash_decode(q, k, v, q_pos, local_flag=None, *, softcap=0.0, window=0,
     """Split-KV decode: q (B, 1, H, Dh), k/v (B, T, KV, Dh), q_pos (B, 1)
     per-lane positions. Inference-only. Returns (B, 1, H, Dh) in q's dtype.
 
-    CUDA tensors launch the kernel; CPU tensors (or ``backend="plain"``)
-    take :func:`flash_decode_plain`."""
+    CUDA tensors launch the kernel: one launch, ``n_splits`` blocks per
+    (lane, KV head) forming one thread-block cluster that merges its
+    splits (default :func:`decode_cluster`; a size the card cannot take
+    raises ``ValueError``). CPU tensors (or ``backend="plain"``) take
+    :func:`flash_decode_plain`."""
     if dispatch.route("flash_decode", q, backend) == dispatch.PLAIN:
         return flash_decode_plain(q, k, v, q_pos, local_flag, softcap=softcap,
                                   window=window)
@@ -100,11 +135,37 @@ def flash_decode(q, k, v, q_pos, local_flag=None, *, softcap=0.0, window=0,
 
 @functools.lru_cache(maxsize=1)
 def _lib():
-    fn = build.load("flash_decode").flash_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = build.load("flash_decode")
+    lib.flash_decode_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                                        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    lib.flash_decode_launch.restype = ctypes.c_int
+    lib.flash_decode_max_cluster.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_decode_max_cluster.restype = ctypes.c_int
+    lib.flash_decode_shares.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.flash_decode_shares.restype = ctypes.c_int
+    return lib
+
+
+def decode_kernel_shares(pos: int, t: int, window: int, cluster: int):
+    """:func:`decode_shares` as the kernel's library computes them (its
+    ``block_share``, run on the host). Needs the card's toolchain: the
+    library is built to ask it."""
+    buf = (ctypes.c_int * (2 * cluster))()
+    if _lib().flash_decode_shares(pos, t, window, cluster, buf) != 0:
+        raise ValueError(f"flash_decode: no cluster of {cluster} blocks over T={t}")
+    return [(buf[2 * r], buf[2 * r + 1]) for r in range(cluster)]
+
+
+@functools.lru_cache(maxsize=None)
+def decode_max_cluster(dh: int, dtype: torch.dtype) -> int:
+    """The largest cluster the decode kernel takes at head dim ``dh`` and
+    ``dtype`` on this card (what ``cudaOccupancyMaxActiveClusters`` can
+    schedule, at most 16). Needs the card."""
+    n = _lib().flash_decode_max_cluster(dh, _DTYPE_CODES[dtype])
+    if n < 1:
+        raise ValueError(f"flash_decode: the card schedules no cluster of the kernel at "
+                         f"Dh={dh} {dtype} (code {n})")
+    return n
 
 
 def _check(q, k, v, q_pos):
@@ -121,6 +182,8 @@ def _check(q, k, v, q_pos):
     if h // kv > MAX_GROUP or dh > MAX_HEAD_DIM or dh % 8:
         raise ValueError(f"flash_decode: the kernel takes G <= {MAX_GROUP} and Dh a "
                          f"multiple of 8 up to {MAX_HEAD_DIM}, got G={h // kv}, Dh={dh}")
+    if b * kv > 65535:
+        raise ValueError(f"flash_decode: B * KV = {b * kv} exceeds the grid's 65535")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_decode: dtypes {q.dtype}, {k.dtype}, {v.dtype}; the "
                          "kernel takes one of float32, bfloat16, float16")
@@ -134,29 +197,32 @@ def _check(q, k, v, q_pos):
             raise ValueError(f"flash_decode: {name} must be contiguous")
         if name != "q_pos" and x.data_ptr() % 16:
             raise ValueError(f"flash_decode: {name} must be 16-byte aligned (the kernel "
-                             "reads rows with 16-byte loads)")
+                             "stages rows with 16-byte cp.async copies)")
+
+
+def _check_cluster(n, limit):
+    if not isinstance(n, int) or isinstance(n, bool) or not 1 <= n <= limit:
+        raise ValueError(f"flash_decode: n_splits={n!r} is no cluster size this card takes "
+                         f"for the kernel (1 to {limit})")
 
 
 def _flash_decode_cuda(q, k, v, q_pos, local_flag, *, softcap, window, n_splits):
     _check(q, k, v, q_pos)
     b, _, h, dh = q.shape
     t, kv = k.shape[1], k.shape[2]
-    g = h // kv
-    bh = b * kv
-    if n_splits is None:
-        n_splits = pick_splits(t, bh)
-    split = math.ceil(t / n_splits)
     use_window = int(window) if (window and local_flag is not None
                                  and bool(local_flag)) else 0
-    o_part = torch.empty((bh, n_splits, g, dh), device=q.device, dtype=torch.float32)
-    lse_part = torch.empty((bh, n_splits, g), device=q.device, dtype=torch.float32)
+    limit = decode_max_cluster(dh, q.dtype)
+    if n_splits is None:
+        n_splits = decode_cluster(min(t, use_window) if use_window else t, b * kv,
+                                  max_cluster=limit)
+    _check_cluster(n_splits, limit)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-                 o_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(),
-                 b, t, kv, g, dh, n_splits, split, use_window,
-                 float(softcap or 0.0), 1.0 / math.sqrt(dh), _DTYPE_CODES[q.dtype],
-                 stream)
+    err = _lib().flash_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        b, t, kv, h // kv, dh, n_splits, use_window, float(softcap or 0.0),
+        1.0 / math.sqrt(dh), _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_decode: kernel launch failed with CUDA error {err}")
     dispatch.count_launch("flash_decode")
@@ -344,20 +410,36 @@ def flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, lse, delta, g_out, *, soft
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_plain_vjp(q, k, v, q_pos, kv_pos, g_out, *, softcap=0.0, window=0,
+                              causal=True, chunk=0):
+    """The CUDA route's two passes in plain versions: the plain forward's
+    (out, lse), then ``flash_attention_bwd_plain`` from that lse with
+    delta = rowsum(g_out * out) in f32. Returns (out, dq, dk, dv): what the
+    kernels are held against on the card (``chip_smoke.py``, the ``cuda``
+    tests). ``window`` is the engaged window. Not differentiable."""
+    with torch.no_grad():
+        out, lse = flash_attention_fwd_plain(q, k, v, q_pos, kv_pos, softcap=softcap,
+                                             window=window, causal=causal, chunk=chunk)
+        delta = torch.sum(g_out.float() * out.float(), dim=-1)
+        grads = flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, lse, delta, g_out,
+                                          softcap=softcap, window=window, causal=causal)
+    return (out, *grads)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward saves (q, k, v, out, lse) and the positions; backward
-    recomputes the probabilities from lse, as the JAX custom VJP does.
-    ``plain`` picks the plain versions for both passes."""
+    """The CUDA route: the forward kernel saves (q, k, v, out, lse) and the
+    positions; the backward kernels recompute the probabilities from lse,
+    as the JAX custom VJP does. First order only: the saved lse is no
+    function of the inputs to autograd, so a second derivative through it
+    would be wrong, and ``dispatch.first_order_only`` raises instead (the
+    JAX package's Pallas path raises there too)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, kv_pos, softcap, window, causal, chunk, plain):
+    def forward(ctx, q, k, v, q_pos, kv_pos, softcap, window, causal):
         opts = dict(softcap=softcap, window=window, causal=causal)
-        if plain:
-            out, lse = flash_attention_fwd_plain(q, k, v, q_pos, kv_pos, chunk=chunk, **opts)
-        else:
-            out, lse = _fwd_cuda(q, k, v, q_pos, kv_pos, **opts)
+        out, lse = _fwd_cuda(q, k, v, q_pos, kv_pos, **opts)
         ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
-        ctx.opts, ctx.plain = opts, plain
+        ctx.opts = opts
         return out
 
     @staticmethod
@@ -366,12 +448,9 @@ class _FlashAttention(torch.autograd.Function):
         g_out = g_out.contiguous()
         # delta = rowsum(dO * O) in f32, outside the kernels as in JAX
         delta = torch.sum(g_out.float() * out.float(), dim=-1)
-        if ctx.plain:
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, lse, delta, g_out,
-                                                   **ctx.opts)
-        else:
-            dq, dk, dv = _bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, g_out, **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        grads = _bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, g_out, **ctx.opts)
+        dq, dk, dv = dispatch.first_order_only("flash_attention", (q, k, v, g_out), grads)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, local_flag=None, *, softcap=0.0, window=0,
@@ -381,8 +460,11 @@ def flash_attention(q, k, v, q_pos, kv_pos, local_flag=None, *, softcap=0.0, win
     q (B, S, H, Dh); k, v (B, T, KV, Dh) with H % KV == 0; q_pos (B, S) and
     kv_pos (T,) integer positions (-1 = padding); ``local_flag`` (a Python
     bool per layer) engages the sliding ``window``. Returns (B, S, H, Dh)
-    in q's dtype. CUDA tensors launch the kernels in both passes; CPU
-    tensors (or ``backend="plain"``) take the plain versions."""
+    in q's dtype. CUDA tensors launch the kernels in both passes (first
+    order only: a second derivative raises). CPU tensors (or
+    ``backend="plain"``) take the plain forward's ops under autograd, as
+    the JAX package's ``ref`` twin does, so they differentiate to any
+    order."""
     use_window = int(window) if (window and local_flag is not None and bool(local_flag)) else 0
     if use_window and not causal:
         raise ValueError("flash_attention: causal=False with an engaged window is refused: "
@@ -390,8 +472,12 @@ def flash_attention(q, k, v, q_pos, kv_pos, local_flag=None, *, softcap=0.0, win
     plain = dispatch.route("flash_attention", q, backend) == dispatch.PLAIN
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
+    if plain:
+        return flash_attention_fwd_plain(q, k, v, q_pos, kv_pos, softcap=float(softcap or 0.0),
+                                         window=use_window, causal=bool(causal),
+                                         chunk=int(chunk or 0))[0]
     return _FlashAttention.apply(q, k, v, q_pos, kv_pos, float(softcap or 0.0), use_window,
-                                 bool(causal), int(chunk or 0), plain)
+                                 bool(causal))
 
 
 @functools.lru_cache(maxsize=None)

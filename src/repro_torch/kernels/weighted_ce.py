@@ -1,13 +1,15 @@
 """Per-row cross-entropy over a large vocabulary: the CUDA kernels'
-wrappers, their plain PyTorch versions and the autograd function.
+wrappers, their plain PyTorch versions and the CUDA route's autograd
+function.
 
 Counterpart of ``src/repro/kernels/weighted_ce.py`` (the Pallas forward and
 backward behind a custom VJP) and of ``ops.cross_entropy``, which flattens
 ``(..., V)`` logits and ``(...)`` targets to rows. :func:`cross_entropy`
-returns the f32 per-row CE. Like the JAX custom VJP it saves ``(logits,
-targets, lse)``, and its backward rebuilds the softmax from ``lse``:
-``dlogits = (exp(x - lse) - onehot) * g`` in f32, stored in the logits'
-dtype. Targets get no gradient.
+returns the f32 per-row CE. On the CUDA route, like the JAX custom VJP, it
+saves ``(logits, targets, lse)``, and its backward rebuilds the softmax
+from ``lse``: ``dlogits = (exp(x - lse) - onehot) * g`` in f32, stored in
+the logits' dtype. The plain route is the forward's ops under autograd.
+Targets get no gradient.
 
 The kernels are ``csrc/weighted_ce.cu``: the forward with one block per
 row (an online max and sum of exponentials, f32 ``ce`` and ``lse``), the
@@ -42,48 +44,50 @@ def cross_entropy_fwd_plain(logits: torch.Tensor, targets: torch.Tensor):
 
 def cross_entropy_bwd_plain(logits, targets, lse, g):
     """d(sum_r g[r] ce[r]) / dlogits from the saved ``lse``, computed in f32
-    and returned in the logits' dtype (``_ce_bwd_kernel``'s arithmetic)."""
+    and returned in the logits' dtype (``_ce_bwd_kernel``'s arithmetic):
+    what the backward kernel is held against on the card."""
     p = torch.exp(logits.float() - lse[:, None])
-    rows = torch.arange(p.shape[0], device=p.device)
-    p[rows, targets.long()] -= 1.0
+    # p - onehot out of place: exp saved p for its own backward
+    p = p.scatter_add(1, targets.long()[:, None], p.new_full((p.shape[0], 1), -1.0))
     return (p * g.float()[:, None]).to(logits.dtype)
 
 
 class _CrossEntropy(torch.autograd.Function):
-    """Forward saves (logits, targets, lse); backward launches the backward
-    kernel (or, with ``plain``, takes its plain version)."""
+    """The CUDA route: the forward kernel saves (logits, targets, lse), the
+    backward kernel rebuilds the softmax from lse. First order only: a
+    second derivative raises (``dispatch.first_order_only``), as the JAX
+    package's Pallas path does."""
 
     @staticmethod
-    def forward(ctx, logits, targets, plain):
-        if plain:
-            ce, lse = cross_entropy_fwd_plain(logits.reshape(-1, logits.shape[-1]), targets)
-        else:
-            ce, lse = _fwd_cuda(logits, targets)
+    def forward(ctx, logits, targets):
+        ce, lse = _fwd_cuda(logits, targets)
         ctx.save_for_backward(logits, targets, lse)
-        ctx.plain = plain
         return ce
 
     @staticmethod
     def backward(ctx, g):
         logits, targets, lse = ctx.saved_tensors
-        g = g.float().contiguous()
-        if ctx.plain:
-            d = cross_entropy_bwd_plain(logits.reshape(-1, logits.shape[-1]), targets, lse, g)
-            return d.reshape(logits.shape), None, None
-        return _bwd_cuda(logits, targets, lse, g), None, None
+        d = _bwd_cuda(logits, targets, lse, g.float().contiguous())
+        (d,) = dispatch.first_order_only("weighted_ce", (logits, g), (d,))
+        return d, None
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *, backend=None) -> torch.Tensor:
     """Per-token CE for (..., V) logits and (...) int targets: (...) f32,
     differentiable in ``logits``. CUDA tensors launch the kernels in both
-    passes (f32 or bf16 logits); CPU tensors (or ``backend="plain"``) take
-    the plain versions."""
+    passes (f32 or bf16 logits; first order only, a second derivative
+    raises). CPU tensors (or ``backend="plain"``) take the plain forward's
+    ops under autograd, as the JAX package's ``ref`` twin does, so they
+    differentiate to any order."""
     if logits.shape[:-1] != targets.shape:
         raise ValueError(f"weighted_ce: logits {tuple(logits.shape)} do not match targets "
                          f"{tuple(targets.shape)}")
     plain = dispatch.route("weighted_ce", logits, backend) == dispatch.PLAIN
     flat_targets = targets.reshape(-1).to(torch.int32).contiguous()
-    ce = _CrossEntropy.apply(logits, flat_targets, plain)
+    if plain:
+        ce, _ = cross_entropy_fwd_plain(logits.reshape(-1, logits.shape[-1]), flat_targets)
+    else:
+        ce = _CrossEntropy.apply(logits, flat_targets)
     return ce.reshape(targets.shape)
 
 

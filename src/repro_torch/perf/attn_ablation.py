@@ -193,25 +193,6 @@ def _pass(kernel, fn, layers):
     return run
 
 
-def _graph_ms(fn, iters=20):
-    """Device time per replay of ``fn``'s launches captured in a CUDA graph
-    (CUDA events over ``iters`` replays after three)."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    for _ in range(3):
-        graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the times as JSON here")
@@ -242,7 +223,7 @@ def main(argv=None):
             row = {}
             for i, v in enumerate((None, *variants, None)):
                 name = "base" if v is None else v
-                ms = _graph_ms(_pass(kernel, fns[kernel, v], layers)) / len(layers)
+                ms = graph_ms(_pass(kernel, fns[kernel, v], layers)) / len(layers)
                 row[name if i == 0 or v is not None else "base_again"] = ms
             result["ms_per_layer"][f"{kernel} {shape}"] = row
             print(f"ablation: {kernel} {shape} ms per layer: "

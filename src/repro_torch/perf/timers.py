@@ -1,6 +1,7 @@
 """Tail-latency statistics for serving, after ``src/repro/perf/timers.py``
-(the port keeps its own copy). Timing of device work (CUDA events,
-synchronize) comes with the port's measurement slice."""
+(the port keeps its own copy); and the device timing and card rates that
+``chip_smoke.py`` and the ``perf`` tools share: :func:`graph_ms`,
+:data:`HBM_BYTES_PER_S`, :data:`PEAK_OPS_PER_S`."""
 
 from __future__ import annotations
 
@@ -8,6 +9,33 @@ import dataclasses
 from typing import Any, Dict, Sequence
 
 import numpy as np
+import torch
+
+#: H100 SXM (NVIDIA data sheet): HBM rate and dense peaks (bf16/f16 on the
+#: tensor cores, f32 on the CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
+
+
+def graph_ms(fn, iters=20, warmup=3):
+    """Device ms of ``fn()``: its launches captured once in a CUDA graph and
+    replayed, ``warmup`` times and then ``iters`` times between two CUDA
+    events, so the host's launch overhead drops out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for _ in range(warmup):
+        graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """The port's split-KV decode (``repro_torch.kernels.flash_attn``) against
 the JAX package's: its plain version against the Pallas kernel run in
-interpret mode and against ``flash_decode_ref``, the stage-2 merge, the
-split heuristic, and device routing. The CUDA kernel itself runs only on
+interpret mode and against ``flash_decode_ref``, the split merge, the
+cluster plan and the rows each block of a cluster takes, and device
+routing. The CUDA kernel itself runs only on
 a card (``-m cuda``); here every call takes the plain version because the
 tensors lie on the CPU.
 
@@ -16,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import flash_attn as jax_fa  # noqa: E402
 from repro_torch.kernels import dispatch, flash_attn  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
 
 TOL = 1e-5
 
@@ -95,17 +97,78 @@ def test_merge_partials_is_single_pass_softmax():
     torch.testing.assert_close(got, full, atol=1e-6, rtol=1e-6)
 
 
-def test_pick_splits_fills_the_sms():
-    # serving: 4 lanes x 1 KV head; a 1024-token bucket is cut into the
-    # shortest splits allowed, a longer one into enough for every SM
-    assert flash_attn.pick_splits(1024, 4) == 1024 // 32
-    assert flash_attn.pick_splits(4096, 4) * 4 >= flash_attn.NUM_SMS
-    assert flash_attn.pick_splits(16, 4) == 1                # short cache: one split
-    assert flash_attn.pick_splits(4096, 512) == 1            # lanes already fill it
-    assert flash_attn.pick_splits(10**6, 1) <= 64            # merge cost cap
-    for t in (1, 100, 1000):
-        for bh in (1, 4, 8):
-            assert flash_attn.pick_splits(t, bh) >= 1
+@pytest.mark.parametrize("rows,bh", [(1024, 4), (512, 4), (256, 8), (16, 4), (1, 1),
+                                     (4096, 1), (10**6, 1), (4096, 512), (100, 3)])
+def test_decode_cluster_stays_within_the_card_limit(rows, bh):
+    c = flash_attn.decode_cluster(rows, bh, max_cluster=16)  # an H100's limit
+    assert 1 <= c <= 16
+    assert c <= max(1, -(-rows // 64))  # no block below one 64-row chunk
+    assert flash_attn.decode_cluster(rows, bh, max_cluster=8) <= 8  # what the card schedules
+
+
+def test_decode_cluster_fills_the_card_at_serving_shapes():
+    # serving: 4 lanes x 1 KV head. A global layer's 1024-row bucket takes
+    # the widest cluster, a local layer's 512-row window half of it; the
+    # lanes alone fill the card at 512 pairs
+    # (an H100 schedules clusters of up to 16 of the kernel's blocks)
+    assert flash_attn.decode_cluster(1024, 4, max_cluster=16) == 16
+    assert flash_attn.decode_cluster(512, 4, max_cluster=16) == 8
+    assert flash_attn.decode_cluster(16, 4, max_cluster=16) == 1
+    assert flash_attn.decode_cluster(4096, 512, max_cluster=16) == 1
+
+
+def _covered(t, pos, window, cluster):
+    shares = flash_attn.decode_shares(pos, t, window, cluster)
+    assert len(shares) == cluster
+    lo = shares[0][0]
+    seen = []
+    for beg, end in shares:
+        assert beg <= end
+        if end > beg:
+            assert (beg - lo) % flash_attn.SHARE_ROWS == 0
+        seen.extend(range(beg, end))
+    return seen
+
+
+_SHARE_CASES = [
+    (1024, 1023, 0), (1024, 700, 512), (1024, 300, 512),  # global and windowed
+    (1024, 0, 0), (1024, 0, 512),                          # the trash lane: one row
+    (1024, 1500, 512), (1024, 1600, 512), (64, 70, 0),     # pos >= T
+    (5, 4, 0), (9, 8, 3),                                  # T shorter than the cluster
+]
+
+
+@pytest.mark.parametrize("cluster", [1, 3, 7, 8, 16])
+@pytest.mark.parametrize("t,pos,window", _SHARE_CASES)
+def test_decode_shares_cover_every_visible_row_once(t, pos, window, cluster):
+    seen = _covered(t, pos, window, cluster)
+    # in order, each once: the visible rows are the plain version's mask,
+    # causal and in the window
+    mask = attn.make_mask(torch.tensor([[pos]]), torch.arange(t), causal=True,
+                          local_flag=bool(window), window=window)[0, 0, 0]
+    assert seen == torch.nonzero(mask).flatten().tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 3, 7, 8, 16])
+def test_decode_shares_are_the_kernels(cluster):
+    """The shares the CPU tests hold are the kernel's: its library's
+    ``block_share`` gives the same [beg, end) at every case and at random
+    positions and windows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    rng = np.random.default_rng(cluster)
+    cases = _SHARE_CASES + [(int(t), int(p), int(w)) for t, p, w in zip(
+        rng.integers(1, 4096, 200), rng.integers(0, 5000, 200), rng.integers(0, 1024, 200))]
+    for t, pos, window in cases:
+        assert flash_attn.decode_kernel_shares(pos, t, window, cluster) == \
+            flash_attn.decode_shares(pos, t, window, cluster), (t, pos, window)
+
+
+@pytest.mark.parametrize("n", [0, 17, -1, 2.0, True])
+def test_cluster_sizes_the_kernel_does_not_take_raise(n):
+    with pytest.raises(ValueError, match="cluster size"):
+        flash_attn._check_cluster(n, 16)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -154,7 +217,7 @@ def test_cuda_kernel_matches_plain_on_the_card(dtype, tol):
                for s in [(B, 1, KV * G, Dh), (B, T, KV, Dh), (B, T, KV, Dh)])
     pos = torch.tensor([[1023], [700], [300], [0]], dtype=torch.int32, device="cuda")
     for local in (True, False):
-        for n_splits in (1, 3, None):
+        for n_splits in (1, 3, 8, 16, None):  # cluster sizes
             got = flash_attn.flash_decode(q, k, v, pos, local, window=512, softcap=50.0,
                                           n_splits=n_splits)
             plain = flash_attn.flash_decode(q, k, v, pos, local, window=512, softcap=50.0,

@@ -84,17 +84,17 @@ def test_flash_attention_kernels_match_plain(dev, case, dtype):
     q, k, v, cot, q_pos, kv_pos, kw = _case_inputs(case, dtype, dev)
     fwd_tol, grad_tol = TOL[dtype]
 
-    def run(backend):
-        qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
-        out = flash_attn.flash_attention(qq, kk, vv, q_pos, kv_pos, True, backend=backend, **kw)
-        (out.float() * cot.float()).sum().backward()
-        return out.detach(), qq.grad, kk.grad, vv.grad
-
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
     dispatch.reset_launches()
-    got = run(None)
+    out = flash_attn.flash_attention(qq, kk, vv, q_pos, kv_pos, True, **kw)
+    (out.float() * cot.float()).sum().backward()
+    got = out.detach(), qq.grad, kk.grad, vv.grad
     torch.cuda.synchronize()
     assert [dispatch.launches(n) for n in (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV)] == [1, 1, 1]
-    plain = run("plain")
+    # the kernels' two passes in plain versions: the plain forward, then
+    # flash_attention_bwd_plain from its lse
+    plain = flash_attn.flash_attention_plain_vjp(q, k, v, q_pos.to(torch.int32),
+                                                 kv_pos.to(torch.int32), cot, **kw)
     for name, a, b, tol in zip(("out", "dq", "dk", "dv"), got, plain,
                                (fwd_tol, grad_tol, grad_tol, grad_tol)):
         assert a.dtype == dtype and a.shape == b.shape
