@@ -83,6 +83,27 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
 11. Lion and Adafactor: bert-base in f32 with each at the base level,
    phase 7's three held step pairs each, one ``lion_adapt`` or
    ``adafactor_adapt`` launch per theta leaf per kernel step.
+12. baselines f32: bert-base in f32, batch 16, one meta step of each
+   baseline estimator (t1t2, neumann, cg at 1 and at 5 iterations,
+   iterdiff) through the kernels and with every kernel plain, from one
+   state, held as phase 7 holds SAMA's (warm rows, base Adam eps 1e-3),
+   the flash launches of the base unroll and the meta gradient counted,
+   the passes that differentiate twice counted under the route reason
+   "second order". T1-T2, Neumann and CG at 1 iteration are held on every
+   coordinate; for CG at 5 and iterdiff, whose reference can give NaN, a
+   NaN or inf is reported and must sit in the same coordinates of both
+   steps.
+13. Table 2: the six methods of ``python -m
+   repro_torch.perf.bench_throughput_memory`` on bert-base in its own
+   dtypes, batch 48, seq 128, unroll 2, one line each: wall median and
+   range, samples/s, peak memory, device time and busy share, each
+   kernel's launches over the measured calls, the (route, reason) counts
+   (SAMA none plain; the baselines' plain calls all "second order") and
+   whether lam stayed finite; ``BENCH_torch_table2.json`` goes to
+   DIR/table2.
+14. checkpoint (run right after phase 8, whose learner it takes):
+   ``MetaLearner.save``, ``load`` into a fresh learner, every leaf bitwise
+   equal, and the next step from both states within phase 7's tolerances.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. The weights and data are random, from seeds; nothing is downloaded.
@@ -1264,10 +1285,11 @@ def _warm_batches(train, dev, batch, unroll, seed):
     return batches
 
 
-def _learner(model, dev, unroll, base_opt):
+def _learner(model, dev, unroll, base_opt, method="sama", **knobs):
     """MetaWeightNet reweighting of the model's per-example loss (the
     classifier's for an encoder, the per-sequence LM loss otherwise),
-    ``base_opt`` at the base level, Adam at the meta level."""
+    ``base_opt`` at the base level, Adam at the meta level; ``knobs`` go
+    to ``MetaLearner`` (the estimators' settings)."""
     from repro_torch import api
     from repro_torch.core import problems
 
@@ -1275,7 +1297,7 @@ def _learner(model, dev, unroll, base_opt):
                    else model.per_example)
     spec = problems.make_data_optimization_spec(per_example, reweight=True)
     learner = api.MetaLearner(spec, base_opt=base_opt, meta_opt="adam", meta_lr=1e-3,
-                              method="sama", unroll_steps=unroll)
+                              method=method, unroll_steps=unroll, **knobs)
     learner.init(model.init(SEED), problems.init_data_optimization_lam(SEED + 1, device=dev))
     return learner
 
@@ -1301,18 +1323,85 @@ def _lm_warm_batches(cfg, dev, batch, seq, unroll, seed):
 F32_TOL = {"base_loss": 1e-5, "meta_loss": 1e-5, "eps": 2e-3, "hypergrad_norm": 2e-3}
 
 
+def _diff(got, ref, got_s, ref_s, state, sign_lr=None):
+    """Two meta steps from ``state`` compared: per metric, (got, ref,
+    relative difference); per theta/lam leaf set, the largest difference,
+    its share of 1e-6 + 5% of the largest update, [how many coordinates lie
+    beyond that bound, how many there are, how many of those beyond are not
+    a sign flip] (with ``sign_lr``, Lion's rate, a flip is a difference
+    within the bound of 2 lr (opposite signs) or lr (one sign 0); without
+    it, none is), and [non-finite coordinates of got, of ref, and of those
+    the ones where the two differ]. A NaN or inf is reported, not caught:
+    the differences are taken where both are finite."""
+    from repro_torch import tree
+
+    diff = {k: (got[k], ref[k], abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30)) for k in F32_TOL}
+    for field in ("theta", "lam"):
+        d_max, share, beyond, not_flips, total, nans = 0.0, 0.0, 0, 0, 0, [0, 0, 0]
+        for x, y, y0 in zip(tree.tree_leaves(got_s[field]), tree.tree_leaves(ref_s[field]),
+                            tree.tree_leaves(getattr(state, field))):
+            bad_x, bad_y = ~torch.isfinite(x), ~torch.isfinite(y)
+            same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+            nans = [nans[0] + int(bad_x.sum()), nans[1] + int(bad_y.sum()),
+                    nans[2] + int(((bad_x | bad_y) & ~same).sum())]
+            both = ~(bad_x | bad_y)
+            total += x.numel()
+            if not bool(both.any()):
+                continue
+            d = (x - y).abs()[both]
+            bound = 1e-6 + 0.05 * (y - y0).abs()[both].max().item()
+            d_max = max(d_max, d.max().item())
+            share = max(share, d.max().item() / bound)
+            over = d > bound
+            beyond += int(over.sum().item())
+            if sign_lr is not None:
+                over &= ((d - 2 * sign_lr).abs() > bound) & ((d - sign_lr).abs() > bound)
+            not_flips += int(over.sum().item())
+        diff[f"{field}_max_abs_diff"], diff[f"{field}_share_of_bound"] = d_max, share
+        diff[f"{field}_beyond_bound"] = [beyond, total, not_flips]
+        diff[f"{field}_nonfinite"] = nans
+    return diff
+
+
+def _hold(tag, diff, sign_lr=None, nonfinite_ok=False):
+    """The metrics within F32_TOL; theta and lam per leaf within 1e-6 + 5%
+    of the step's largest update. With ``nonfinite_ok`` (the baseline
+    estimators, whose reference can give NaN) a metric may instead be
+    equal, NaN or inf in both, and the bound holds where both are finite
+    with the same non-finite values in the same coordinates; without it
+    any non-finite value fails. ``sign_lr`` (Lion) admits
+    theta coordinates beyond the bound only where the two steps took
+    opposite signs of a momentum vote c that rounding decides: each 2 lr
+    (or lr, a sign of 0) apart within the bound, and at most 1e-5 of the
+    coordinates."""
+    for key, rtol in F32_TOL.items():
+        got, ref, _ = diff[key]
+        if nonfinite_ok and (got == ref or (math.isnan(got) and math.isnan(ref))):
+            continue
+        if not abs(got - ref) <= rtol * abs(ref) + 1e-7:
+            raise AssertionError(f"{tag} {key}: {got!r} vs {ref!r}")
+    for field in ("theta", "lam"):
+        bad = diff[f"{field}_nonfinite"]
+        if bad[2] or (not nonfinite_ok and (bad[0] or bad[1])):
+            raise AssertionError(f"{tag} {field}: non-finite coordinates {bad}")
+        if diff[f"{field}_share_of_bound"] <= 1.0:
+            continue
+        beyond, total, not_flips = diff[f"{field}_beyond_bound"]
+        flips_ok = (sign_lr is not None and field == "theta" and not_flips == 0
+                    and beyond <= 1e-5 * total)
+        if not flips_ok:
+            raise AssertionError(
+                f"{tag} {field}: {diff[f'{field}_max_abs_diff']:.3e} is "
+                f"{diff[f'{field}_share_of_bound']:.2f} of the bound; {beyond} of {total} "
+                f"coordinates beyond it, {not_flips} of them no sign flip")
+
+
 def _step_pair(learner, state, base, meta, counted=(), sign_lr=None):
     """One meta step from ``state`` through the kernels and with every
-    kernel plain. Returns the plain state; per metric, (kernels, plain,
-    relative difference); per theta/lam leaf set, the largest difference,
-    its share of 1e-6 + 5% of the largest update, and [how many
-    coordinates lie beyond that bound, how many there are, how many of
-    those beyond are not a sign flip]: with ``sign_lr`` (Lion's rate) a
-    flip is a difference within the bound of 2 lr (opposite signs) or lr
-    (one sign 0); without it, none is. Also the kernel step's launches of
-    the ``counted`` kernels and the two steps' seconds. Only theta and lam
-    of the kernel step are kept while the plain step runs."""
-    from repro_torch import tree
+    kernel plain. Returns the plain state, their ``_diff``, the kernel
+    step's launches of the ``counted`` kernels and the two steps' seconds.
+    Only theta and lam of the kernel step are kept while the plain step
+    runs."""
     from repro_torch.core.engine import packed_read
     from repro_torch.kernels import dispatch
 
@@ -1327,37 +1416,17 @@ def _step_pair(learner, state, base, meta, counted=(), sign_lr=None):
         ref_s, ref = learner.step_fn(state, base, meta)
         ref = packed_read(ref)
     t2 = time.perf_counter()
-    diff = {k: (got[k], ref[k], abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30)) for k in F32_TOL}
-    for field in ("theta", "lam"):
-        d_max, share, beyond, not_flips, total = 0.0, 0.0, 0, 0, 0
-        for x, y, y0 in zip(tree.tree_leaves(got_s[field]), tree.tree_leaves(getattr(ref_s, field)),
-                            tree.tree_leaves(getattr(state, field))):
-            d = (x - y).abs()
-            bound = 1e-6 + 0.05 * (y - y0).abs().max().item()
-            d_max = max(d_max, d.max().item())
-            share = max(share, d.max().item() / bound)
-            over = d > bound
-            beyond += int(over.sum().item())
-            if sign_lr is not None:
-                over &= ((d - 2 * sign_lr).abs() > bound) & ((d - sign_lr).abs() > bound)
-            not_flips += int(over.sum().item())
-            total += x.numel()
-        diff[f"{field}_max_abs_diff"], diff[f"{field}_share_of_bound"] = d_max, share
-        diff[f"{field}_beyond_bound"] = [beyond, total, not_flips]
+    diff = _diff(got, ref, got_s, {"theta": ref_s.theta, "lam": ref_s.lam}, state, sign_lr)
     return ref_s, diff, launches, (t1 - t0, t2 - t1)
 
 
-def _held_steps(tag, learner, batches, steps, want=None, sign_lr=None):
+def _held_steps(tag, learner, batches, steps, want=None, sign_lr=None, nonfinite_ok=False):
     """``steps`` meta steps, each from one state through the kernels and
     with every kernel plain (dispatch.plain_everywhere, a context the model
-    never enters); the run goes on from the plain step's state (run
-    freely, two f32 trajectories part within a few meta steps: ROADMAP
-    queue 3). Held: the metrics within F32_TOL; theta and lam per leaf
-    within 1e-6 + 5% of the step's largest update; the kernel step's
-    launches equal to ``want``. ``sign_lr`` (Lion) admits theta coordinates
-    beyond the bound only where the two steps took opposite signs of a
-    momentum vote c that rounding decides: each 2 lr (or lr, a sign of 0)
-    apart within the bound, and at most 1e-5 of the coordinates."""
+    never enters), held by ``_hold`` (``nonfinite_ok`` passed on), with the
+    kernel step's launches equal to ``want``; the run goes on from the
+    plain step's state (run freely, two f32 trajectories part within a few
+    meta steps: ROADMAP queue 3)."""
     state, rows, secs = learner.state, [], [0.0, 0.0]
     for i in range(steps):
         state, diff, launches, (tk, tp) = _step_pair(learner, state, *batches(i),
@@ -1367,21 +1436,7 @@ def _held_steps(tag, learner, batches, steps, want=None, sign_lr=None):
         rows.append(diff)
         if want is not None and launches != want:
             raise AssertionError(f"{tag} step {i}: launches {launches} != {want}")
-        for key, rtol in F32_TOL.items():
-            got, ref, _ = diff[key]
-            if not abs(got - ref) <= rtol * abs(ref) + 1e-7:
-                raise AssertionError(f"{tag} step {i} {key}: kernels {got!r} vs plain {ref!r}")
-        for field in ("theta", "lam"):
-            if diff[f"{field}_share_of_bound"] <= 1.0:
-                continue
-            beyond, total, not_flips = diff[f"{field}_beyond_bound"]
-            flips_ok = (sign_lr is not None and field == "theta" and not_flips == 0
-                        and beyond <= 1e-5 * total)
-            if not flips_ok:
-                raise AssertionError(
-                    f"{tag} step {i} {field}: {diff[f'{field}_max_abs_diff']:.3e} is "
-                    f"{diff[f'{field}_share_of_bound']:.2f} of the bound; {beyond} of {total} "
-                    f"coordinates beyond it, {not_flips} of them no sign flip")
+        _hold(f"{tag} step {i}", diff, sign_lr, nonfinite_ok)
     worst = {k: max(r[k][2] for r in rows) for k in F32_TOL}
     for field in ("theta", "lam"):
         for k in (f"{field}_max_abs_diff", f"{field}_share_of_bound"):
@@ -1475,6 +1530,201 @@ def phase_train_lion_adafactor(base_cfg, dev, batch=16, seq=128, unroll=2, steps
         del learner
         torch.cuda.empty_cache()
     log("train_lion_adafactor: " + json.dumps(out))
+    return out
+
+
+BASELINES = ("t1t2", "neumann", "cg", "iterdiff")
+
+
+def _method_launches(method, cfg, unroll, leaves):
+    """Per meta step of the remat encoder: the flash forwards, dq and dk/dv,
+    and adam_adapt. SAMA as _train_launches (SAMA-NA without adam_adapt);
+    a baseline's unroll takes K forwards and K backwards (each recomputing
+    its forward), t1t2, neumann and cg add the meta gradient (one more of
+    each) and the meta loss's forward, iterdiff the meta loss's forward
+    only: its re-unroll and every Hessian or mixed product are second order
+    (dispatch.second_order), on the plain route."""
+    from repro_torch.kernels import flash_attn
+
+    if method in ("sama", "sama_na"):
+        want = _train_launches(cfg, unroll, leaves)
+        want["adam_adapt"] = leaves if method == "sama" else 0
+        return want
+    L, k = cfg.num_layers, unroll if method == "iterdiff" else unroll + 1
+    return {flash_attn.FWD: L * (k + 1) + L * k, flash_attn.DQ: L * k, flash_attn.DKV: L * k,
+            "adam_adapt": 0}
+
+
+def _tiny_gradients(learner, base, b2=0.999):
+    """The coordinates of the first base gradient (fresh Adam state, as
+    iterdiff's re-unroll starts) where Adam's second moment (1 - b2) g^2
+    is 0 in f32: g exactly 0, or so small that its square underflows (of
+    the embeddings, the rows the batch reads).
+    There sqrt(vhat) sits at 0 and its derivative is infinite, so
+    differentiating through it (iterdiff) gives inf or NaN (ROADMAP queue
+    3)."""
+    from repro_torch import tree
+    from repro_torch.core.sama import value_and_grad
+
+    batch = tree.tree_map(lambda x: x[0], base)
+    _, g = value_and_grad(learner.spec.base_scalar, 0)(learner.state.theta,
+                                                       learner.state.lam, batch)
+    # embedding rows the batch does not read are zero by construction, and
+    # the gather's transpose drops their cotangent: count the rows it reads
+    read = {("embed",): torch.unique(batch["tokens"].long()),
+            ("pos_embed",): torch.arange(batch["tokens"].shape[1], device=batch["tokens"].device)}
+    out = {"coordinates": 0, "exact_zero": 0, "square_underflows": 0, "leaves_with_either": []}
+    for path, x in zip(*reversed(tree.tree_flatten(g))):
+        x = x[read[path]] if path in read else x
+        zero = int((x == 0).sum())
+        under = int(((1.0 - b2) * x * x == 0).sum()) - zero
+        out["coordinates"] += x.numel()
+        out["exact_zero"] += zero
+        out["square_underflows"] += under
+        if zero or under:
+            out["leaves_with_either"].append(["/".join(path), zero, under])
+    return out
+
+
+def phase_baselines_f32(base_cfg, dev, batch=16, seq=128, unroll=2):
+    """bert-base in f32: one meta step of each baseline estimator, through
+    the kernels and with every kernel plain, from one state, held as phase
+    7 holds SAMA's (warm rows, base Adam eps 1e-3); the kernel step's flash
+    launches equal to _method_launches, and its second-order passes counted
+    under "second order". T1-T2, Neumann and CG at 1 iteration are held on
+    every coordinate, so a wrong meta gradient, CG's input, shows: at
+    bert-base the reference's CG diverges from its second iteration on, to
+    NaN at 2 iterations as at 5. CG at its default 5 iterations and
+    iterdiff (it differentiates sqrt(vhat) at 0) are reports: a NaN or inf
+    must sit in the same coordinates of both steps; for iterdiff the first
+    base gradient's zero and underflowing coordinates are counted
+    (_tiny_gradients)."""
+    from repro_torch import optim
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import Model
+
+    cfg = base_cfg.replace(dtype="float32")
+    model = Model(cfg, device=dev)
+    train, _ = _wrench(cfg, seq, 256, 16, SEED + 70)
+    out = {}
+    cases = (("t1t2", {}, False), ("neumann", {}, False), ("cg_iters1", {"cg_iters": 1}, False),
+             ("cg", {}, True), ("iterdiff", {}, True))
+    for name, knobs, nonfinite_ok in cases:
+        method = name.split("_")[0]
+        batches = _warm_batches(train, dev, batch, unroll, SEED + 71)
+        learner = _learner(model, dev, unroll, optim.adam(1e-3, eps=1e-3), method, **knobs)
+        want = {k: v for k, v in _method_launches(method, cfg, unroll, 0).items() if v}
+        _, res = _held_steps(f"baselines {name}", learner, batches, 1, want,
+                             nonfinite_ok=nonfinite_ok)
+        second = dispatch.route_counts().get((dispatch.PLAIN, dispatch.SECOND_ORDER), 0)
+        if not second:
+            raise AssertionError(f"baselines {name}: no call took the second-order route")
+        res.update({"launches_per_step": want, "second_order_routes": second,
+                    "held_on_every_coordinate": not nonfinite_ok,
+                    "hypergrad_norm_finite": math.isfinite(
+                        res["per_step"][0]["hypergrad_norm"][0])})
+        if method == "iterdiff":
+            res["first_base_gradient"] = _tiny_gradients(learner, batches(0)[0])
+        out[name] = res
+        log(f"baselines_f32: {name} " + json.dumps(res))
+        del learner
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_table2(cfg, dev, out_dir, batch=48, seq=128, unroll=2, warmup=1, repeats=2):
+    """Paper Table 2 on the card: the six methods of
+    ``repro_torch.perf.bench_throughput_memory`` on bert-base in its own
+    dtypes, batch 48, seq 128, unroll 2. Per method one line: wall median
+    and range, samples/s, peak memory, device time and busy share, each
+    kernel's launches against _method_launches over the measured calls,
+    the (route, reason) counts, and whether lam stayed finite (reported, a
+    NaN is not caught). SAMA must route nothing plain; each baseline's
+    second-order passes must take "second order". Writes
+    BENCH_torch_table2.json to ``out_dir``/table2."""
+    from repro_torch import tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.perf import bench_throughput_memory as bench
+
+    rows = {}
+
+    def check(rec):
+        x = rec.extra
+        m, steps = x["method"], x["steps_counted"]
+        leaves = len(tree.tree_leaves(model_leaves))
+        want = {k: v * steps for k, v in _method_launches(m, cfg, unroll, leaves).items()}
+        got = {k: x["launches"].get(k, 0) for k in want}
+        routes = {(r, why): n for r, why, n in x["routes"]}
+        t = rec.us_per_step
+        row = {"median_ms": t["median_us"] / 1e3, "min_ms": t["min_us"] / 1e3,
+               "max_ms": t["max_us"] / 1e3, "samples_per_s": rec.samples_per_s,
+               "peak_gb": (rec.memory["per_device"]["peak_bytes"] or 0) / 1e9,
+               "device_ms": x["device_ms"], "busy_share": x["device_busy_share"],
+               "first_call_s": x["first_call_s"], "launches": got, "steps_counted": steps,
+               "second_order_peak_bytes": x["second_order_peak_bytes"],
+               "routes": x["routes"], "hypergrad_norm": x["hypergrad_norm"],
+               "lam_finite": x["lam_finite"], "seconds": x["bench_s"],
+               "profiled_step_seconds": x["profiled_step_s"]}
+        rows[m] = row
+        log(f"table2: {m} " + json.dumps(row))
+        if got != want:
+            raise AssertionError(f"table2 {m}: launches {got} != {want}")
+        if not x["device_ms"] > 0:
+            raise AssertionError(f"table2 {m}: the profiler saw no device time")
+        plain = {k: n for k, n in routes.items() if k[0] == dispatch.PLAIN}
+        if m in ("sama", "sama_na") and plain:
+            raise AssertionError(f"table2 {m}: plain calls {plain}")
+        if m in BASELINES and set(plain) != {(dispatch.PLAIN, dispatch.SECOND_ORDER)}:
+            raise AssertionError(f"table2 {m}: plain calls {plain}, want second order only")
+
+    from repro_torch.models import transformer
+
+    model_leaves = transformer.init_params(cfg, device="meta")
+    t0 = time.perf_counter()
+    table_dir = os.path.join(out_dir, "table2")
+    os.makedirs(table_dir, exist_ok=True)
+    records = bench.run(cfg, batch=batch, seq=seq, unroll=unroll, warmup=warmup,
+                        repeats=repeats, device=dev, seed=SEED + 80, trace_dir=table_dir,
+                        log=check)
+    path = bench.write(table_dir, records, time.perf_counter() - t0)
+    log(f"table2: wrote {path}")
+    return rows
+
+
+def phase_checkpoint(cfg, dev, learner, it, out_dir, unroll=2):
+    """``MetaLearner.save`` of phase 8's learner, then ``load`` into a fresh
+    learner (another init): every leaf bitwise equal, and the next step from
+    both states within phase 7's tolerances (_hold)."""
+    from repro_torch import optim, tree
+    from repro_torch.core.engine import packed_read
+    from repro_torch.models import Model
+
+    path = os.path.join(out_dir, "checkpoint")
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    learner.save(path)
+    t1 = time.perf_counter()
+    fresh = _learner(Model(cfg, device=dev), dev, unroll, optim.adam(1e-3))
+    fresh.load(path)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    names, saved = tree.flatten_with_keys(learner.state)
+    names_r, loaded = tree.flatten_with_keys(fresh.state)
+    unequal = [n for n, x, y in zip(names, saved, loaded)
+               if x.dtype != y.dtype or x.device != y.device or not torch.equal(x, y)]
+    if names != names_r or unequal:
+        raise AssertionError(f"checkpoint: leaves differ after load: {unequal[:5]}")
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    base, meta = next(it)
+    got_s, got = learner.step_fn(learner.state, base, meta)
+    ref_s, ref = fresh.step_fn(fresh.state, base, meta)
+    diff = _diff(packed_read(got), packed_read(ref), {"theta": got_s.theta, "lam": got_s.lam},
+                 {"theta": ref_s.theta, "lam": ref_s.lam}, learner.state)
+    _hold("checkpoint next step", diff)
+    shutil.rmtree(path)
+    out = {"leaves": len(names), "bitwise_equal": True, "bytes": nbytes, "save_s": t1 - t0,
+           "load_s": t2 - t1, "step": int(learner.state.step), "next_step": diff}
+    log("checkpoint: " + json.dumps(out))
     return out
 
 
@@ -1591,7 +1841,8 @@ def _train_launches(cfg, unroll, leaves):
 
 
 def phase_train_bf16(cfg, dev, out_dir, batch=48, seq=128, unroll=2, steps=10):
-    """bert-base in its own dtype on WRENCH-analog data."""
+    """bert-base in its own dtype on WRENCH-analog data. Returns the result,
+    the learner and its batch iterator (phase 14 saves and loads it)."""
     from repro_torch import data, optim, tree
     from repro_torch.models import Model
 
@@ -1604,7 +1855,7 @@ def phase_train_bf16(cfg, dev, out_dir, batch=48, seq=128, unroll=2, steps=10):
     result = _timed_fit("train_bf16", learner, it, steps, want, out_dir, "train_step",
                         {"samples": batch * unroll})
     result.update({"batch": batch, "seq": seq, "unroll": unroll})
-    return result
+    return result, learner, it
 
 
 def phase_train_gemma_bf16(cfg, dev, out_dir, batch=4, seq=1024, unroll=2, steps=10):
@@ -1658,7 +1909,8 @@ def phase_train_gemma_bf16(cfg, dev, out_dir, batch=4, seq=1024, unroll=2, steps
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
-                    help="directory for the profiler traces of a decode and two training steps")
+                    help="directory for the profiler traces of a decode and two training "
+                         "steps, and the Table 2 bench file")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -1755,7 +2007,10 @@ def main():
     # phases 7-8: training bert-base
     timed("train_f32", phase_train_f32, bert, dev)
     torch.cuda.empty_cache()
-    bert_out = timed("train_bf16", phase_train_bf16, bert, dev, args.out)
+    bert_out, bert_learner, bert_it = timed("train_bf16", phase_train_bf16, bert, dev, args.out)
+    # phase 14 takes phase 8's learner
+    timed("checkpoint", phase_checkpoint, bert, dev, bert_learner, bert_it, args.out)
+    del bert_learner, bert_it
     torch.cuda.empty_cache()
 
     # phases 9-11: training gemma3-1b, and Lion and Adafactor bases
@@ -1764,6 +2019,12 @@ def main():
     gemma_out = timed("train_gemma_bf16", phase_train_gemma_bf16, cfg, dev, args.out)
     torch.cuda.empty_cache()
     la_out = timed("train_lion_adafactor", phase_train_lion_adafactor, bert, dev)
+    torch.cuda.empty_cache()
+
+    # phases 12-13: the baseline estimators, and the paper's Table 2
+    timed("baselines_f32", phase_baselines_f32, bert, dev)
+    torch.cuda.empty_cache()
+    timed("table2", phase_table2, bert, dev, args.out)
 
     # launches: each kernel's count from this slice's main path (the gemma3-1b
     # bf16 run) where it runs there, else from the run that drives it (the

@@ -4,7 +4,7 @@ base-Jacobian approximation and (ii) analytic algorithmic adaptation for
 adaptive optimizers. Hypergradient estimators sit behind the
 ``repro_torch.core.methods`` registry."""
 
-from repro_torch.core import meta_modules, methods
+from repro_torch.core import baselines, meta_modules, methods
 from repro_torch.core.bilevel import BilevelSpec
 from repro_torch.core.engine import (
     Engine,
@@ -36,6 +36,7 @@ __all__ = [
     "SAMAResult",
     "ScaleConfig",
     "available_methods",
+    "baselines",
     "init_state",
     "make_meta_step",
     "meta_modules",

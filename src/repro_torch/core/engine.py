@@ -63,6 +63,11 @@ class EngineConfig:
     alpha: float = 1.0  # SAMA perturbation scale
     base_nudge: bool = True
     adapt_clip: float = 0.0  # see SAMAConfig.adapt_clip
+    # baseline-specific knobs
+    neumann_terms: int = 5
+    neumann_scale: float = 0.1
+    cg_iters: int = 5
+    cg_damping: float = 1e-3
     scale: ScaleConfig = ScaleConfig()
 
     def __post_init__(self):
@@ -191,14 +196,14 @@ def packed_read(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(keys, vals))
 
 
-def run_loop(step_fn, state, batch_iter, num_steps: int,
-             log_every: int = 0) -> Tuple[Any, List[Dict[str, float]]]:
+def run_loop(step_fn, state, batch_iter, num_steps: int, log_every: int = 0,
+             on_step=None) -> Tuple[Any, List[Dict[str, float]]]:
     """The shared training loop: drive ``step_fn`` over an iterator of
     (base_batches[K], meta_batch), collecting the metrics at the
     ``log_every`` cadence (and on the last step). Metrics are read only
     there, in one device-to-host copy per logged step (:func:`packed_read`);
-    between logs the loop never waits on the device. (The JAX loop's
-    ``on_step`` hook serves checkpointing, which comes with its port.)"""
+    between logs the loop never waits on the device. ``on_step(i, state)``
+    runs after every step (checkpoint hooks)."""
 
     history = []
     for i in range(num_steps):
@@ -206,6 +211,8 @@ def run_loop(step_fn, state, batch_iter, num_steps: int,
         state, metrics = step_fn(state, base_batches, meta_batch)
         if log_every and (i % log_every == 0 or i == num_steps - 1):
             history.append(packed_read(metrics) | {"step": i})
+        if on_step is not None:
+            on_step(i, state)
     return state, history
 
 

@@ -1,6 +1,7 @@
 """First-class hypergradient estimators (DESIGN.md sections 2-3), after
-``src/repro/core/methods``. Importing this package registers ``sama`` and
-``sama_na``; the baselines (t1t2, neumann, cg, iterdiff) come later."""
+``src/repro/core/methods``. Importing this package registers the six
+built-in methods: ``sama``, ``sama_na`` and the baselines ``t1t2``,
+``neumann``, ``cg`` and ``iterdiff``."""
 
 from repro_torch.core.methods.base import (
     HypergradMethod,
@@ -14,13 +15,31 @@ from repro_torch.core.methods.base import (
     validate_terms,
 )
 from repro_torch.core.methods.sama import SAMAMethod
+from repro_torch.core.methods.baselines import (
+    CGConfig,
+    CGMethod,
+    IterDiffConfig,
+    IterDiffMethod,
+    NeumannConfig,
+    NeumannMethod,
+    T1T2Config,
+    T1T2Method,
+)
 
 __all__ = [
+    "CGConfig",
+    "CGMethod",
     "HypergradMethod",
+    "IterDiffConfig",
+    "IterDiffMethod",
     "LocalTerms",
     "MethodContext",
+    "NeumannConfig",
+    "NeumannMethod",
     "ReduceContract",
     "SAMAMethod",
+    "T1T2Config",
+    "T1T2Method",
     "available_methods",
     "register_method",
     "resolve_method",

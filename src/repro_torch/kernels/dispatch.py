@@ -10,11 +10,23 @@ convention: the hand-written CUDA kernel and its plain PyTorch version.
 * ``backend="plain"`` computes the plain version whatever the device, and
   so does every call inside :func:`plain_everywhere`. Both exist for the
   comparisons of kernel and plain version on the card (tests,
-  ``chip_smoke.py``); the model never passes the one or enters the other.
+  ``chip_smoke.py``); no training or serving path passes the one or enters
+  the other.
+* Every call inside :func:`second_order` takes the plain version too, with
+  the reason ``"second order"``: the kernels' backward is first order only
+  (:func:`first_order_only`), so the baseline hypergradient estimators
+  (``core/baselines.py``) enter it around exactly the passes that
+  differentiate twice (their Hessian-vector and mixed products and
+  iterative differentiation's re-unroll). Nothing catches a kernel's raise
+  and retries plain: outside the context a second derivative through the
+  kernels still raises.
 
 Each wrapper calls :func:`count_launch` exactly where it launches its
 kernel, so a run can show that its main path went through the kernel:
-reset the counts, drive the path, read :func:`launches`.
+reset the counts, drive the path, read :func:`launches`. Beside them,
+:func:`route_counts` counts the routing decisions by (route, reason), so a
+run can show which passes took which route (the dispatch log keeps only
+the latest 4096).
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import torch
 
 CUDA = "cuda"
 PLAIN = "plain"
+SECOND_ORDER = "second order"
 
 #: class count at or above which per-example CE takes the ``weighted_ce``
 #: kernel's route (``src/repro/kernels/dispatch.py``); below it a plain
@@ -40,8 +53,20 @@ _DISPATCH_LOG: "collections.deque[Tuple[str, str, str]]" = collections.deque(max
 #: launches of each kernel since the last reset, counted by the wrappers.
 _LAUNCHES: Dict[str, int] = collections.defaultdict(int)
 
-#: depth of open plain_everywhere() contexts
+#: routing decisions by (route, reason) since the last reset
+_ROUTES: Dict[Tuple[str, str], int] = collections.defaultdict(int)
+
+#: depth of open plain_everywhere() and second_order() contexts
 _PLAIN_DEPTH = 0
+_SECOND_ORDER_DEPTH = 0
+
+
+def _device_route(name: str, x: torch.Tensor) -> Tuple[str, str]:
+    if x.device.type == "cuda":
+        return CUDA, "cuda tensor"
+    if x.device.type == "cpu":
+        return PLAIN, "cpu tensor"
+    raise ValueError(f"kernel {name!r} has no route for device {x.device}")
 
 
 def route(name: str, x: torch.Tensor, backend: Optional[str] = None) -> str:
@@ -51,13 +76,12 @@ def route(name: str, x: torch.Tensor, backend: Optional[str] = None) -> str:
         raise ValueError(f"backend must be None or {PLAIN!r}, got {backend!r}")
     if backend == PLAIN or _PLAIN_DEPTH:
         chosen, reason = PLAIN, "forced"
-    elif x.device.type == "cuda":
-        chosen, reason = CUDA, "cuda tensor"
-    elif x.device.type == "cpu":
-        chosen, reason = PLAIN, "cpu tensor"
+    elif _SECOND_ORDER_DEPTH:
+        chosen, reason = PLAIN, SECOND_ORDER
     else:
-        raise ValueError(f"kernel {name!r} has no route for device {x.device}")
+        chosen, reason = _device_route(name, x)
     _DISPATCH_LOG.append((name, chosen, reason))
+    _ROUTES[(chosen, reason)] += 1
     return chosen
 
 
@@ -75,6 +99,20 @@ def plain_everywhere() -> Iterator[None]:
         _PLAIN_DEPTH -= 1
 
 
+@contextlib.contextmanager
+def second_order() -> Iterator[None]:
+    """Every kernel call inside takes its plain version, on any device, with
+    the reason ``"second order"``: the passes that differentiate twice
+    (``core/baselines.py``), which the first-order kernels cannot take."""
+
+    global _SECOND_ORDER_DEPTH
+    _SECOND_ORDER_DEPTH += 1
+    try:
+        yield
+    finally:
+        _SECOND_ORDER_DEPTH -= 1
+
+
 class _FirstOrderOnly(torch.autograd.Function):
     """Passes a kernel backward's gradients through unchanged; taking a
     derivative of them raises, naming the kernel."""
@@ -88,7 +126,8 @@ class _FirstOrderOnly(torch.autograd.Function):
     def backward(ctx, *grads):
         raise RuntimeError(f"{ctx.name}: a second derivative through the CUDA kernels is not "
                            "supported: their backward is first order only (the plain route, "
-                           "backend='plain' or CPU tensors, differentiates to any order)")
+                           "backend='plain', dispatch.second_order() or CPU tensors, "
+                           "differentiates to any order)")
 
 
 def first_order_only(name: str, inputs, grads):
@@ -111,8 +150,23 @@ def launches(name: str) -> int:
     return _LAUNCHES[name]
 
 
+def launch_counts() -> Dict[str, int]:
+    """Launches since the last reset, by kernel."""
+
+    return dict(_LAUNCHES)
+
+
+def route_counts() -> Dict[Tuple[str, str], int]:
+    """Routing decisions since the last reset, by (route, reason)."""
+
+    return dict(_ROUTES)
+
+
 def reset_launches() -> None:
+    """Sets the launch counts and the route counts to 0."""
+
     _LAUNCHES.clear()
+    _ROUTES.clear()
 
 
 def dispatch_log() -> List[Tuple[str, str, str]]:

@@ -2,13 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train [--arch gemma3-1b] \
         [--smoke] [--steps 50] [--batch 8] [--seq 64] [--unroll 2] \
-        [--method sama] [--device cuda]
+        [--method sama] [--device cuda] [--ckpt out/ck]
 
 Wires together: config registry -> synthetic data -> Model ->
 data-optimization BilevelSpec with MetaWeightNet reweighting ->
 ``repro_torch.api.MetaLearner`` (Adam at both levels). Prints one JSON
 line of metrics per logged step, as ``repro.launch.train`` does; the
-metrics are read once per log, in one device-to-host copy. The weights
+metrics are read once per log, in one device-to-host copy. With ``--ckpt``
+the final state is saved to ``{ckpt}/step_NNNNNN`` in the JAX package's
+checkpoint format and a last JSON line names it. The weights
 and the data are random, from ``--seed``. It runs on the card unless
 ``--device cpu`` is given (use it with ``--smoke`` on the CPU). The
 default arch is gemma3-1b, as in the JAX CLI: its per-sequence LM loss
@@ -66,6 +68,7 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt", default=None)
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
@@ -76,7 +79,8 @@ def main(argv=None):
     )
     learner = api.MetaLearner(spec, base_opt="adam", base_lr=args.base_lr,
                               meta_opt="adam", meta_lr=args.meta_lr,
-                              method=args.method, unroll_steps=args.unroll)
+                              method=args.method, unroll_steps=args.unroll,
+                              checkpoint_dir=args.ckpt)
     theta = model.init(args.seed)
     lam = problems.init_data_optimization_lam(args.seed + 1, reweight=True, device=model.device)
     learner.init(theta, lam)
@@ -92,6 +96,8 @@ def main(argv=None):
             row["step"] = i
             row["elapsed_s"] = round(time.time() - t0, 1)
             print(json.dumps(row), flush=True)
+    if args.ckpt:
+        print(json.dumps({"checkpoint": learner.save(meta={"arch": cfg.name})}), flush=True)
 
 
 if __name__ == "__main__":

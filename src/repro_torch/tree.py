@@ -71,3 +71,56 @@ def tree_flatten_up_to(paths: Sequence[Tuple[str, ...]], tree: Tree) -> List[Any
         out.append(node)
     return out
 
+
+
+def flatten_with_keys(tree: Tree) -> Tuple[List[str], List[Any]]:
+    """Leaf names and leaves of a tree of NamedTuples, dicts, tuples and
+    lists, the names as ``jax.tree_util.keystr`` renders their paths and in
+    JAX's leaf order: NamedTuple fields ``.name`` in declared order, dict
+    keys ``['key']`` sorted, sequence items ``[i]``; ``None`` is an empty
+    subtree (Adafactor's ``mu``, a stateless optimizer's moments)."""
+
+    names: List[str] = []
+    leaves: List[Any] = []
+
+    def rec(node, name):
+        if node is None:
+            return
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            for field in node._fields:
+                rec(getattr(node, field), f"{name}.{field}")
+        elif isinstance(node, dict):
+            for key in sorted(node):
+                rec(node[key], f"{name}[{key!r}]")
+        elif isinstance(node, (tuple, list)):
+            for i, item in enumerate(node):
+                rec(item, f"{name}[{i}]")
+        else:
+            names.append(name)
+            leaves.append(node)
+
+    rec(tree, "")
+    return names, leaves
+
+
+def unflatten_like(like: Tree, leaves: Sequence[Any]) -> Tree:
+    """``like``'s structure with its leaves replaced, in
+    :func:`flatten_with_keys` order, by ``leaves``."""
+
+    it = iter(leaves)
+
+    def rec(node):
+        if node is None:
+            return None
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(rec(getattr(node, f)) for f in node._fields))
+        if isinstance(node, dict):
+            return {key: rec(node[key]) for key in sorted(node)}
+        if isinstance(node, (tuple, list)):
+            return type(node)(rec(item) for item in node)
+        return next(it)
+
+    out = rec(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out

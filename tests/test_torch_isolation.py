@@ -50,6 +50,8 @@ def test_package_imports_with_jax_unavailable():
             "import repro_torch.launch.serve, repro_torch.kernels.build\n"
             "import repro_torch.api, repro_torch.core, repro_torch.data\n"
             "import repro_torch.launch.train, repro_torch.optim\n"
+            "import repro_torch.checkpoint, repro_torch.core.baselines\n"
+            "import repro_torch.perf.bench_throughput_memory, repro_torch.perf.gate\n"
             "from repro_torch.models import Model\n"
             "from repro_torch import configs\n"
             "m = Model(configs.get_smoke_config('gemma3-1b'), device='cpu')\n"
