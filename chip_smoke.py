@@ -38,13 +38,16 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    ``adam_adapt`` at the embedding's 23,440,896 elements, the stacked MLP
    weights' 28,311,552 and a ragged size (rtol 1e-5, sum of squares 1e-4);
    ``weighted_ce`` forward and backward at gemma3-1b's LM loss (the (4,
-   1023, 262144) logits view, R 4,092) and at R 37, V 5,000, f32 and bf16
-   logits (ce and lse within 1e-5 (1 + |ref|); dlogits within 1e-6 +
-   1e-5 |ref| of the plain version in f32, plus half an ulp for bf16);
+   1023, 262144) logits view, R 4,092) and at R 37, V 5,000, f32, bf16
+   and f16 logits (ce and lse within 1e-5 (1 + |ref|); dlogits within
+   1e-6 + 1e-5 |ref| of the plain version in f32, plus half an ulp of the
+   dtype for bf16 and f16);
    ``lion_adapt`` and ``adafactor_adapt`` at bert-base's embedding,
    gemma3-1b's embedding (301,989,888) and a ragged size (as
    ``adam_adapt``); then each kernel's time (per bert-base layer at B 48,
-   S 128, bf16; the attention kernels also per gemma3-1b global and local
+   S 128, bf16; the CE also with bf16 and f16 logits at the same shape,
+   the f16 instantiation beside the bf16; the attention kernels also per
+   gemma3-1b global and local
    layer over one pass of its 26 layers, with SDPA's time under each
    backend that takes the layer (the median of five timings, their range
    beside it) and the tiles the bf16 kernels visit; the
@@ -104,6 +107,26 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
 14. checkpoint (run right after phase 8, whose learner it takes):
    ``MetaLearner.save``, ``load`` into a fresh learner, every leaf bitwise
    equal, and the next step from both states within phase 7's tolerances.
+15. scale (``repro_torch.scale``): (a) ``scale_f32``: bert-base in f32
+   with microbatch M = 2, phase 7's three held step pairs, launches M x
+   phase 7's (one adam_adapt per leaf), and the M = 2 step against M = 1
+   from one state reported, not held; (b) ``scale_memory``: gemma3-1b with
+   the bf16 policy, batch 4, seq 1024, unroll 2, meta batch 4, M in {1,
+   2, 4} (``perf/bench_scale.py``, ``BENCH_torch_scale.json`` in
+   DIR/scale): step wall median of 3, peak memory, launches held to M x
+   the M = 1 counts; (c) ``scale_plan``: ``plan_microbatch`` at a budget
+   between the M = 1 and M = 4 peaks picks the smallest fitting M, its
+   candidates non-increasing in peak; (d) ``scale_f16``: gemma3-1b with
+   f16 activations and the f16 policy, M = 2, four meta steps with
+   loss_scale, meta_skipped and skipped base steps per step, and a linear
+   probe at 8,192 classes whose f16 logits launch the CE's f16
+   instantiation.
+16. dataopt: ``DataOptimizer`` at bert-base on 4,096 WRENCH-analog rows:
+   the meta scorer (20 SAMA steps, EMA uncertainty) with its launches
+   held to the code's prediction, the scoring pass in rows/s, prune,
+   retrain, evaluate, reweighted batches, export and load bitwise, el2n
+   and grand, and the scoring losses through the kernels within 2e-2 +
+   2e-2 relative of plain_everywhere.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. The weights and data are random, from seeds; nothing is downloaded.
@@ -1082,26 +1105,32 @@ ADAPT_SIZES = (23_440_896, 301_989_888, 1_000_003)
 
 def _ce_inputs(rng, dev, b, s, v, sliced, dtype):
     """Logits as the LM loss hands them to weighted_ce (the (B, S - 1, V)
-    view when ``sliced``), int32 targets (R,) and an f32 cotangent (R,)."""
-    full = (_randn(rng, (b, s, v), torch.float32, dev) * 3).to(dtype)
+    view when ``sliced``), int32 targets (R,) and an f32 cotangent (R,),
+    drawn on the card from a seed that ``rng`` draws (a billion normal
+    draws take the host ~10 s)."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+    full = (torch.randn((b, s, v), generator=gen, device=dev) * 3).to(dtype)
     x = full[:, :-1] if sliced else full.reshape(b * s, v)
     rows = x.numel() // v
-    t = torch.from_numpy(rng.integers(0, v, rows).astype(np.int32)).to(dev)
-    g = _randn(rng, (rows,), torch.float32, dev)
+    t = torch.randint(0, v, (rows,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.randn(rows, generator=gen, device=dev)
     return x, t, g
 
 
 def phase_ce_kernel_check(dev):
     """weighted_ce forward and backward against the plain versions: ce and
     lse within 1e-5 (1 + |ref|), f32 dlogits within 1e-6 + 1e-5 |ref|, and
-    bf16 dlogits within half an ulp (+ the f32 tolerance) of the plain
-    version in f32 on the same inputs."""
+    bf16 and f16 dlogits within (1e-5 + half an ulp of their dtype) |ref|
+    of the plain version in f32 on the same inputs, plus one step of the
+    dtype's subnormals (2^-24 for f16, where most of gemma3-1b's dlogits
+    lie: |dlogits| ~ 4e-8 |g| at lse ~ 17, so an absolute term of 1e-6
+    would leave them unchecked)."""
     from repro_torch.kernels import dispatch, weighted_ce as wce
 
     rng = np.random.default_rng(SEED + 12)
     worst = {"fwd": {}, "bwd": {}}
     for name, b, s, v, sliced in CE_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             x, t, g = _ce_inputs(rng, dev, b, s, v, sliced, dtype)
             ce, lse = wce._fwd_cuda(x, t)
             d = wce._bwd_cuda(x, t, lse, g)
@@ -1121,21 +1150,32 @@ def phase_ce_kernel_check(dev):
             d_ref = wce.cross_entropy_bwd_plain(x.float().reshape(-1, v), t, lse_ref, g)
             if d.dtype != dtype or d.shape != x.shape:
                 raise AssertionError(f"weighted_ce backward returned {d.dtype} {tuple(d.shape)}")
-            rtol = 1e-5 + (torch.finfo(dtype).eps / 2 if dtype != torch.float32 else 0.0)
-            share = _excess(d.reshape(-1, v), d_ref, 1e-6, rtol)
+            rtol, atol = _dlogits_tolerance(dtype)
+            share = _excess(d.reshape(-1, v), d_ref, atol, rtol)
             if not share <= 1.0:
                 raise AssertionError(f"weighted_ce dlogits vs plain in f32 at {name} {dtype}: "
-                                     f"{share:.3f} of 1e-6 + {rtol:.3g} |ref|")
+                                     f"{share:.3f} of {atol:.3g} + {rtol:.3g} |ref|")
             worst["bwd"][key] = max(worst["bwd"].get(key, 0.0),
                                     (d.reshape(-1, v).float() - d_ref).abs().max().item())
             worst["bwd"][key + "_share_of_bound"] = max(
                 worst["bwd"].get(key + "_share_of_bound", 0.0), share)
             del x, d, d_ref
             torch.cuda.empty_cache()
-    log(f"kernel_check: weighted_ce at {[c[:4] for c in CE_SHAPES]} f32 and bf16 logits: "
+    log(f"kernel_check: weighted_ce at {[c[:4] for c in CE_SHAPES]} f32, bf16, f16 logits: "
         f"forward max_abs_err {worst['fwd']}, backward {worst['bwd']}")
     dispatch.reset_launches()
     return worst
+
+
+def _dlogits_tolerance(dtype):
+    """(rtol, atol) of dlogits stored in ``dtype`` against the plain version
+    in f32: 1e-5 relative for the arithmetic; for 16-bit stores, half an
+    ulp relative for the rounding, and the spacing of the dtype's
+    subnormals absolute (round-to-nearest is within half of it)."""
+    if dtype == torch.float32:
+        return 1e-5, 1e-6
+    fi = torch.finfo(dtype)
+    return 1e-5 + fi.eps / 2, fi.tiny * fi.eps
 
 
 def _dev_randn(gen, n, dev):
@@ -1175,24 +1215,22 @@ def phase_adapt_kernel_check(dev):
     return worst
 
 
-def phase_new_kernel_time(dev):
-    """weighted_ce forward and backward at gemma3-1b's LM loss shape in
-    the main path's dtype (f32 logits, the (4, 1023, V) view), beside the
-    plain versions and ``F.cross_entropy(reduction="none")`` (forward; its
-    autograd backward, timed eagerly); lion_adapt and adafactor_adapt at
-    bert-base's embedding beside their plain versions (no library call)."""
+def _ce_times(dev, rng, dtype):
+    """weighted_ce forward and backward at gemma3-1b's LM loss shape (the
+    (4, 1023, V) view) with ``dtype`` logits, by CUDA-graph replay, beside
+    the plain versions and ``F.cross_entropy(reduction="none")`` on the same
+    logits (forward; its autograd backward, timed eagerly); the bound from
+    the logits' bytes (the arithmetic is f32 in every instantiation)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import adafactor_adapt, lion_adapt, weighted_ce as wce
+    from repro_torch.kernels import weighted_ce as wce
 
-    rng = np.random.default_rng(SEED + 14)
     _, b, s, v, _ = CE_SHAPES[0]
-    x, t, g = _ce_inputs(rng, dev, b, s, v, True, torch.float32)
+    x, t, g = _ce_inputs(rng, dev, b, s, v, True, dtype)
     rows = t.numel()
     _, lse = wce._fwd_cuda(x, t)
     x2 = x.reshape(rows, v)  # a contiguous copy for the library call
     t64 = t.long()
-    out = {}
     fwd_ms = graph_ms(lambda: wce._fwd_cuda(x, t))
     bwd_ms = graph_ms(lambda: wce._bwd_cuda(x, t, lse, g))
     plain_fwd = time_ms(lambda: wce.cross_entropy_fwd_plain(x.reshape(-1, v), t), iters=10)
@@ -1201,25 +1239,47 @@ def phase_new_kernel_time(dev):
     lib_fwd = graph_ms(lambda: F.cross_entropy(x2, t64, reduction="none"))
     leaf = x2.detach().requires_grad_(True)
     lib_out = F.cross_entropy(leaf, t64, reduction="none")
-    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaf, g, retain_graph=True),
-                      iters=10)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaf, g.to(lib_out.dtype),
+                                                  retain_graph=True), iters=10)
     del leaf, lib_out
     fwd_ms_2 = graph_ms(lambda: wce._fwd_cuda(x, t))
     bwd_ms_2 = graph_ms(lambda: wce._bwd_cuda(x, t, lse, g))
-    logits_b = rows * v * 4
-    shape = {"R": rows, "V": v, "dtype": "float32", "layout": f"({b}, {s - 1}, {v}) view"}
+    logits_b = rows * v * x.element_size()
+    name = str(dtype).replace("torch.", "")
+    shape = {"R": rows, "V": v, "dtype": name, "layout": f"({b}, {s - 1}, {v}) view"}
+    out = {}
     # one exp and about three more operations per logit, in f32
-    for name, ms, ms2, plain, lib, nbytes in (
-            ("weighted_ce_fwd", fwd_ms, fwd_ms_2, plain_fwd, lib_fwd, logits_b + rows * 12),
-            ("weighted_ce_bwd", bwd_ms, bwd_ms_2, plain_bwd, lib_bwd, 2 * logits_b + rows * 12)):
+    for kernel, ms, ms2, plain, lib, nbytes in (
+            (wce.FWD, fwd_ms, fwd_ms_2, plain_fwd, lib_fwd, logits_b + rows * 12),
+            (wce.BWD, bwd_ms, bwd_ms_2, plain_bwd, lib_bwd, 2 * logits_b + rows * 12)):
         bound_ms, bound_by = _bound(nbytes, 4 * rows * v, torch.float32)
-        out[name] = {"ms": ms, "ms_repeat": ms2, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape}
-        log(f"kernel_time: {name} at R={rows} V={v} f32: ms={ms:.4f} (repeat {ms2:.4f}) "
-            f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
-    out["weighted_ce_bwd"]["library_call"] = "autograd backward of F.cross_entropy, eager"
+        out[kernel] = {"ms": ms, "ms_repeat": ms2, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape}
+        log(f"kernel_time: {kernel} at R={rows} V={v} {name}: ms={ms:.4f} (repeat "
+            f"{ms2:.4f}) plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by})")
+    out[wce.BWD]["library_call"] = "autograd backward of F.cross_entropy, eager"
     del x, x2, t, t64, g, lse
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_new_kernel_time(dev):
+    """weighted_ce forward and backward at gemma3-1b's LM loss shape in
+    the main path's dtype (f32 logits), and its f16 instantiation beside
+    the bf16 one at the same shape (``_ce_times``); lion_adapt and
+    adafactor_adapt at bert-base's embedding beside their plain versions
+    (no library call)."""
+    from repro_torch.kernels import adafactor_adapt, lion_adapt, weighted_ce as wce
+
+    rng = np.random.default_rng(SEED + 14)
+    out = _ce_times(dev, rng, torch.float32)
+    bf16 = _ce_times(dev, rng, torch.bfloat16)
+    f16 = _ce_times(dev, rng, torch.float16)
+    for kernel in (wce.FWD, wce.BWD):
+        f16[kernel]["bf16_ms"] = bf16[kernel]["ms"]
+        f16[kernel]["bf16_ms_repeat"] = bf16[kernel]["ms_repeat"]
+        out[f"{kernel}_f16"] = f16[kernel]
 
     n = ADAPT_SIZES[0]
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
@@ -1728,6 +1788,330 @@ def phase_checkpoint(cfg, dev, learner, it, out_dir, unroll=2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 15-16: the scale layer and data optimization
+# ---------------------------------------------------------------------------
+
+
+def _scaled_launches(cfg, unroll, leaves, m):
+    """Per meta step with M microbatches: every model-sized pass runs once
+    per microbatch, so each attention and CE count of the M = 1 step
+    (``_train_launches``; K + 3 CE forwards, K + 1 backwards) times M; one
+    adam_adapt per theta leaf, as at M = 1 (the product runs once, on the
+    accumulated meta gradient)."""
+    from repro_torch.kernels import weighted_ce as wce
+
+    want = {k: (v if k == "adam_adapt" else m * v)
+            for k, v in _train_launches(cfg, unroll, leaves).items()}
+    if cfg.family != "encoder":
+        want.update({wce.FWD: m * (unroll + 3), wce.BWD: m * (unroll + 1)})
+    return want
+
+
+def phase_scale_f32(base_cfg, dev, batch=16, seq=128, unroll=2, steps=3, m=2):
+    """15(a): bert-base in f32, policy f32, M = 2: _held_steps (kernels
+    against plain_everywhere, base Adam eps 1e-3, phase 7's tolerances)
+    with M x phase 7's attention launches; then the M = 2 step against the
+    M = 1 step from one state on one batch, reported as relative
+    differences, not held (the reference's own f32-exactness property
+    fails on the reference: ROADMAP queue 3)."""
+    from repro_torch import optim, scale, tree
+    from repro_torch.core.engine import packed_read
+    from repro_torch.models import Model
+
+    cfg = base_cfg.replace(dtype="float32")
+    model = Model(cfg, device=dev)
+    train, _ = _wrench(cfg, seq, 256, 16, SEED + 90)
+    batches = _warm_batches(train, dev, batch, unroll, SEED + 91)
+    learner = _learner(model, dev, unroll, optim.adam(1e-3, eps=1e-3),
+                       scale=scale.ScaleConfig(microbatch=m))
+    want = _scaled_launches(cfg, unroll, len(tree.tree_leaves(learner.state.theta)), m)
+    _, out = _held_steps(f"scale f32 M={m}", learner, batches, steps, want)
+    learner_1 = _learner(model, dev, unroll, optim.adam(1e-3, eps=1e-3))
+    state = learner.state
+    base, meta = batches(steps)
+    got_s, got = learner.step_fn(state, base, meta)
+    ref_s, ref = learner_1.step_fn(state, base, meta)
+    vs_m1 = _diff(packed_read(got), packed_read(ref), {"theta": got_s.theta, "lam": got_s.lam},
+                  {"theta": ref_s.theta, "lam": ref_s.lam}, state)
+    del learner, learner_1, got_s, ref_s
+    torch.cuda.empty_cache()
+    out.update({"batch": batch, "seq": seq, "unroll": unroll, "microbatch": m,
+                "launches_per_step": want, f"m{m}_vs_m1_not_held": vs_m1})
+    log("scale_f32: " + json.dumps(out))
+    return out
+
+
+def _scale_bench(cfg, dev, out_dir, meta_batch, ms):
+    """The bf16 arms of ``perf/bench_scale.py`` at ``ms``, at the bench's
+    sizes; each arm's launches held to steps x ``_scaled_launches`` (an
+    arm out of memory is reported, with no launches to hold)."""
+    from repro_torch import tree
+    from repro_torch.models import transformer
+    from repro_torch.perf import bench_scale
+
+    seq, unroll = bench_scale.SEQ, bench_scale.UNROLL
+    leaves = len(tree.tree_leaves(transformer.init_params(cfg, device="meta")))
+    rows = {}
+
+    def check(rec):
+        x = rec.extra
+        m, steps = x["microbatch"], x["steps_counted"]
+        want = {k: v * steps for k, v in _scaled_launches(cfg, unroll, leaves, m).items()}
+        got = {k: x["launches"].get(k, 0) for k in want}
+        row = {"policy": x["policy"], "microbatch": m, "meta_batch": meta_batch,
+               "out_of_memory": x["out_of_memory"], "steps_counted": steps,
+               "launches": got, "launches_predicted": want, "seconds": x["bench_s"]}
+        if not x["out_of_memory"]:
+            t = rec.us_per_step
+            row.update({"step_ms_median": t["median_us"] / 1e3, "step_ms_min": t["min_us"] / 1e3,
+                        "step_ms_max": t["max_us"] / 1e3, "samples_per_s": rec.samples_per_s,
+                        "tokens_per_s": rec.samples_per_s * seq,
+                        "max_memory_allocated": rec.memory["per_device"]["peak_bytes"],
+                        "first_call_s": x["first_call_s"]})
+            if got != want:
+                raise AssertionError(f"scale bf16 M={m}: launches {got} != {want}")
+        rows[m] = row
+        log("scale_memory: " + json.dumps(row))
+
+    t0 = time.perf_counter()
+    records = bench_scale.run(cfg, meta_batch=meta_batch, arms=[("bf16", m) for m in ms],
+                              device=dev, seed=SEED + 100, log=check)
+    path = bench_scale.write(os.path.join(out_dir, "scale"), records, time.perf_counter() - t0)
+    log(f"scale_memory: wrote {path}")
+    return rows
+
+
+def phase_scale_memory(cfg, dev, out_dir):
+    """15(b): gemma3-1b with the bf16 policy, batch 4, seq 1024, unroll 2,
+    meta batch 4, M in {1, 2, 4}: step wall time (median of 3), peak
+    memory and launches per M (``_scale_bench``). If M = 1 does not fit
+    the card at meta batch 4, that is reported and the reading is taken at
+    meta batch 2, M in {1, 2}."""
+    os.makedirs(os.path.join(out_dir, "scale"), exist_ok=True)
+    rows = _scale_bench(cfg, dev, out_dir, 4, (1, 2, 4))
+    meta_batch = 4
+    if rows[1]["out_of_memory"]:
+        log("scale_memory: M=1 at meta batch 4 does not fit the card; meta batch 2, M in 1, 2")
+        rows = _scale_bench(cfg, dev, out_dir, 2, (1, 2))
+        meta_batch = 2
+    peaks = [rows[m].get("max_memory_allocated") for m in sorted(rows)]
+    if any(p is None for p in peaks):
+        raise AssertionError(f"scale_memory: an arm ran out of memory at meta batch "
+                             f"{meta_batch}: {peaks}")
+    return {"meta_batch": meta_batch, "rows": rows}
+
+
+def phase_scale_plan(cfg, dev, peaks, meta_batch):
+    """15(c): ``scale.plan_microbatch`` for gemma3-1b with the bf16 policy,
+    at 15(b)'s sizes and meta batch, at a budget halfway between 15(b)'s
+    M = 1 and largest-M peaks. The plan
+    must fit, every candidate it measured below its choice must exceed the
+    budget (the smallest fitting M), and its candidates' peaks must be
+    non-increasing in M; the M that 15(b)'s peaks would pick is reported
+    beside it."""
+    from repro_torch import scale
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import Model
+    from repro_torch.perf.bench_scale import BATCH, SEQ, UNROLL
+
+    model = Model(cfg, device=dev)
+    learner = _learner(model, dev, UNROLL, "adam", scale=scale.ScaleConfig(policy="bf16"))
+    make_batch = make_batch_fn(cfg, SEQ, dev, np.random.default_rng(SEED + 100))
+    base_b, meta_b = make_batch(BATCH, UNROLL), make_batch(meta_batch)
+    budget = (peaks[1] + peaks[max(peaks)]) // 2
+    t0 = time.perf_counter()
+    plan = scale.plan_microbatch(learner.spec, learner.base_opt, learner.meta_opt, learner.cfg,
+                                 learner.state, base_b, meta_b, hbm_budget=budget)
+    secs = time.perf_counter() - t0
+    del learner, base_b, meta_b
+    torch.cuda.empty_cache()
+    cands = [(m, p) for m, p in plan.candidates]
+    out = {"budget_bytes": budget, "microbatch": plan.microbatch, "fits": plan.fits,
+           "peak_bytes": plan.peak_bytes, "source": plan.source, "candidates": cands,
+           "bench_peaks": peaks, "bench_would_pick": min(
+               (m for m, p in peaks.items() if p <= budget), default=None),
+           "seconds": secs}
+    log("scale_plan: " + json.dumps(out))
+    if not plan.fits or plan.peak_bytes > budget or plan.source != "cuda_max_allocated":
+        raise AssertionError(f"scale_plan: {out}")
+    measured = [p for _, p in cands]
+    if any(p is None for p in measured) or measured != sorted(measured, reverse=True):
+        raise AssertionError(f"scale_plan: candidates not non-increasing in peak: {cands}")
+    if any(p <= budget for m, p in cands if m < plan.microbatch):
+        raise AssertionError(f"scale_plan: a smaller M fits: {cands}")
+    return out
+
+
+def phase_scale_f16(base_cfg, dev, batch=4, seq=1024, unroll=2, meta_batch=4, steps=4, m=2):
+    """15(d): gemma3-1b with the f16 policy and f16 activations (config
+    dtype float16), M = 2, four meta steps: per step loss_scale,
+    meta_skipped and the base steps skipped (from the scale's halvings:
+    log2(before / after) less the meta gate's, while the scale is above
+    its floor), launches held to M x the M = 1 counts. The LM loss casts
+    its logits to f32 before the CE (in both packages), so the CE runs its
+    f32 instantiation there; the f16 instantiation runs in a linear probe
+    over gemma3-1b's 1,152-wide features at 8,192 classes under the same
+    policy (two meta steps, M = 2), whose f16 logits take the kernels."""
+    from repro_torch import api, scale, tree
+    from repro_torch.core import problems
+    from repro_torch.core.engine import packed_read
+    from repro_torch.kernels import dispatch, weighted_ce as wce
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import Model
+
+    cfg = base_cfg.replace(dtype="float16")
+    model = Model(cfg, device=dev)
+    learner = _learner(model, dev, unroll, "adam", scale=scale.ScaleConfig(policy="f16",
+                                                                            microbatch=m))
+    make_batch = make_batch_fn(cfg, seq, dev, np.random.default_rng(SEED + 110))
+    want = _scaled_launches(cfg, unroll, len(tree.tree_leaves(learner.state.theta)), m)
+    want.update({f"{wce.FWD}_f32": want[wce.FWD], f"{wce.BWD}_f32": want[wce.BWD]})
+    rows = []
+    dispatch.reset_launches()  # counts of this path's run only
+    for i in range(steps):
+        before = float(learner.state.scale.scale)
+        metrics = packed_read(learner.step(make_batch(batch, unroll), make_batch(meta_batch)))
+        after = float(learner.state.scale.scale)
+        halvings = math.log2(before / after) if after > 0 else float("nan")
+        rows.append({"step": i, "loss_scale_before": before, "loss_scale": metrics["loss_scale"],
+                     "meta_skipped": metrics["meta_skipped"],
+                     "base_skipped": (halvings - metrics["meta_skipped"]
+                                      if after > scale.resolve_policy("f16").min_loss_scale
+                                      else "at the floor: not derivable"),
+                     "good_steps": int(learner.state.scale.good_steps),
+                     **{k: metrics[k] for k in ("base_loss", "meta_loss", "hypergrad_norm",
+                                                "eps")}})
+        log("scale_f16: " + json.dumps(rows[-1]))
+    got = {k: dispatch.launches(k) for k in want}
+    want = {k: v * steps for k, v in want.items()}
+    del learner, model
+    torch.cuda.empty_cache()
+    if got != want:
+        raise AssertionError(f"scale f16: launches {got} != {want}")
+    for r in rows:
+        if not 1.0 <= r["loss_scale"] <= 2.0 ** 15 or r["meta_skipped"] not in (0.0, 1.0):
+            raise AssertionError(f"scale f16: automaton out of range {r}")
+
+    # the f16 CE instantiation on its path: a linear probe at 8,192 classes
+    d, classes, pb, probe_steps = cfg.d_model, 8192, 32, 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 111)
+    theta = {"w": torch.randn((d, classes), generator=gen, device=dev) * d ** -0.5,
+             "b": torch.zeros(classes, device=dev)}
+    spec = problems.make_data_optimization_spec(
+        problems.softmax_per_example(lambda th, x: x @ th["w"] + th["b"]), reweight=True)
+    probe = api.MetaLearner(spec, base_opt="adam", meta_opt="adam", unroll_steps=unroll,
+                            scale=scale.ScaleConfig(policy="f16", microbatch=m))
+    probe.init(theta, problems.init_data_optimization_lam(SEED + 112, device=dev))
+
+    def probe_batch(lead):
+        return {"x": torch.randn(lead + (d,), generator=gen, device=dev),
+                "y": torch.randint(0, classes, lead, generator=gen, device=dev,
+                                   dtype=torch.int32)}
+
+    probe_want = {f"{wce.FWD}_f16": m * (unroll + 3) * probe_steps,
+                  f"{wce.BWD}_f16": m * (unroll + 1) * probe_steps}
+    dispatch.reset_launches()  # counts of this path's run only
+    probe_rows = [packed_read(probe.step(probe_batch((unroll, pb)), probe_batch((pb,))))
+                  for _ in range(probe_steps)]
+    probe_got = {k: dispatch.launches(k) for k in probe_want}
+    del probe, theta
+    torch.cuda.empty_cache()
+    out = {"model_dtype": cfg.dtype, "batch": batch, "seq": seq, "unroll": unroll,
+           "meta_batch": meta_batch, "microbatch": m, "steps": rows,
+           "launches": got, "launches_predicted": want,
+           "f16_ce_probe": {"classes": classes, "d": d, "batch": pb, "steps": probe_rows,
+                            "launches": probe_got}}
+    log("scale_f16_probe: " + json.dumps(out["f16_ce_probe"]))
+    if probe_got != probe_want or not all(math.isfinite(r["base_loss"]) for r in probe_rows):
+        raise AssertionError(f"scale f16 probe: launches {probe_got} != {probe_want} "
+                             f"or a loss not finite: {probe_rows}")
+    return out
+
+
+def phase_dataopt(cfg, dev, out_dir, n=4096, n_meta=512, n_test=512, seq=128, steps=20,
+                  unroll=2, batch=32):
+    """16: ``DataOptimizer`` at bert-base in its own dtypes on WRENCH-analog
+    data: the meta scorer (SAMA, 20 steps, unroll 2, batch and meta batch
+    32, EMA uncertainty) with its launches held to the code's prediction
+    (the meta steps' as phase 8, plus L attention forwards per scoring
+    batch, three scoring passes: at steps 10 and 20 and the final one);
+    the scoring pass alone in rows/s; prune(0.3, class-balanced), retrain
+    (20 steps), evaluate on a test split; three reweighted batches; export
+    and load bitwise; el2n on all rows and grand on 64; the scoring pass's
+    per-example losses through the kernels against plain_everywhere on the
+    first 256 rows within 2e-2 + 2e-2 relative."""
+    from repro_torch import dataopt, tree
+    from repro_torch.kernels import dispatch, flash_attn
+    from repro_torch.models import Model
+
+    model = Model(cfg, device=dev)
+    train, meta = _wrench(cfg, seq, n, n_meta, SEED + 120)
+    test, _ = _wrench(cfg, seq, n_test, 1, SEED + 123)
+    out, t0 = {}, time.perf_counter()
+    opt = dataopt.DataOptimizer(model, train, meta=meta, scorer="meta", steps=steps,
+                                unroll=unroll, batch=batch, meta_batch=batch,
+                                uncertainty="ema", seed=SEED + 121)
+    L, K = cfg.num_layers, unroll
+    leaves = len(tree.tree_leaves(model.init(SEED)))
+    per_pass = L * math.ceil(n / opt.ctx.batch_size)
+    passes = steps // 10 + 1  # score_every 10, and the final pass
+    want = {flash_attn.FWD: steps * (L * (K + 3) + L * (K + 1)) + passes * per_pass,
+            flash_attn.DQ: steps * L * (K + 1), flash_attn.DKV: steps * L * (K + 1),
+            "adam_adapt": steps * leaves}
+    dispatch.reset_launches()  # counts of this path's run only
+    t1 = time.perf_counter()
+    scores = opt.fit_scores()
+    out["fit_scores_s"] = time.perf_counter() - t1
+    got = {k: dispatch.launches(k) for k in want}
+    out.update({"launches": got, "launches_predicted": want})
+    if got != want:
+        raise AssertionError(f"dataopt: launches {got} != {want}")
+    if scores.shape != (n,) or not np.all((scores > 0) & (scores < 1)):
+        raise AssertionError(f"dataopt: meta scores {scores.shape} outside (0, 1)")
+
+    pruned, mask = opt.prune(0.3, class_balanced=True)
+    theta = opt.retrain(steps=20, mask=mask, batch=batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pe = opt.ctx.per_example_all(theta)
+    pass_s = time.perf_counter() - t1
+    out.update({"scoring_pass_rows_per_s": n / pass_s, "scoring_pass_s": pass_s,
+                "kept": int(mask.sum()), "accuracy": opt.evaluate(theta, test),
+                "scores_mean": float(scores.mean()), "scores_std": float(scores.std())})
+    first = {k: v[:256] for k, v in train.items()}
+    kern = dataopt.score_dataset(model.classifier_per_example, theta, first, device=dev)
+    with dispatch.plain_everywhere():
+        plain = dataopt.score_dataset(model.classifier_per_example, theta, first, device=dev)
+    excess = float(np.max(np.abs(kern.loss - plain.loss) / (2e-2 + 2e-2 * np.abs(plain.loss))))
+    out["score_loss_vs_plain_share_of_bound"] = excess
+    if not excess <= 1.0 or not np.allclose(kern.loss, pe.loss[:256], rtol=1e-6, atol=1e-6):
+        raise AssertionError(f"dataopt: kernel losses vs plain {excess:.3f} of the bound")
+
+    it = opt.reweighted_iterator(batch_size=batch, meta_batch_size=batch, unroll=unroll)
+    shapes = [tuple(next(it)[0]["tokens"].shape) for _ in range(3)]
+    if shapes != [(unroll, batch, seq)] * 3:
+        raise AssertionError(f"dataopt: reweighted batches {shapes}")
+    path = opt.export(os.path.join(out_dir, "dataopt_scores"), mask=mask)
+    loaded = dataopt.DataOptimizer(model, train, scorer="meta", device=dev).load(path)
+    if not np.array_equal(loaded, scores):
+        raise AssertionError("dataopt: exported scores do not load back bitwise")
+
+    el2n = dataopt.DataOptimizer(model, train, scorer="el2n", seed=SEED + 124).fit_scores()
+    grand = dataopt.DataOptimizer(model, {k: v[:64] for k, v in train.items()},
+                                  scorer="grand", seed=SEED + 125).fit_scores()
+    for name, s in (("el2n", el2n), ("grand", grand)):
+        if not np.all(np.isfinite(s)):
+            raise AssertionError(f"dataopt: {name} scores not finite")
+    out.update({"el2n_mean": float(el2n.mean()), "grand_mean": float(grand.mean()),
+                "n": n, "n_meta": n_meta, "n_test": n_test, "seq": seq, "steps": steps,
+                "reweighted_batches": shapes, "seconds": time.perf_counter() - t0})
+    del opt, theta
+    torch.cuda.empty_cache()
+    log("dataopt: " + json.dumps(out))
+    return out
+
+
 PHASES = ("base_unroll", "local_terms", "meta_pass", "cd_passes", "finalize", "meta_update")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -1910,7 +2294,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
                     help="directory for the profiler traces of a decode and two training "
-                         "steps, and the Table 2 bench file")
+                         "steps, the Table 2 and scale bench files and phase 16's score "
+                         "export")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -1979,9 +2364,11 @@ def main():
         elif name in (wce.FWD, wce.BWD):
             w = ce_worst["fwd" if name == wce.FWD else "bwd"]
             e.update({"max_abs_err": max(w["float32"], w["bfloat16"]),
-                      "max_err_f32": w["float32"], "max_err_bf16_logits": w["bfloat16"]})
+                      "max_err_f32": w["float32"], "max_err_bf16_logits": w["bfloat16"],
+                      "max_err_f16_logits": w["float16"]})
             if name == wce.BWD:
                 e["bf16_vs_f32_share_of_bound"] = w["bfloat16_share_of_bound"]
+                e["f16_vs_f32_share_of_bound"] = w["float16_share_of_bound"]
         else:
             e.update({"max_abs_err": t_worst[name][torch.bfloat16],
                       "max_err_f32": t_worst[name][torch.float32],
@@ -2025,6 +2412,17 @@ def main():
     timed("baselines_f32", phase_baselines_f32, bert, dev)
     torch.cuda.empty_cache()
     timed("table2", phase_table2, bert, dev, args.out)
+    torch.cuda.empty_cache()
+
+    # phase 15: precision policies, microbatching and the planner; phase 16:
+    # data optimization
+    timed("scale_f32", phase_scale_f32, bert, dev)
+    mem = timed("scale_memory", phase_scale_memory, cfg, dev, args.out)
+    peaks = {m: r["max_memory_allocated"] for m, r in mem["rows"].items()}
+    timed("scale_plan", phase_scale_plan, cfg, dev, peaks, meta_batch=mem["meta_batch"])
+    f16_out = timed("scale_f16", phase_scale_f16, cfg, dev)
+    torch.cuda.empty_cache()
+    timed("dataopt", phase_dataopt, bert, dev, args.out)
 
     # launches: each kernel's count from this slice's main path (the gemma3-1b
     # bf16 run) where it runs there, else from the run that drives it (the
@@ -2041,6 +2439,21 @@ def main():
             e["launches_train_bf16_bert"] = bert_out["launches"][name]
         if not e["launches"] >= 1:
             raise AssertionError(f"{name}: no launch on its path")
+    # the CE kernels' f16 instantiation: its checks and times from phase 4,
+    # its launches from phase 15(d)'s f16 linear probe
+    for kernel in (wce.FWD, wce.BWD):
+        w = ce_worst["fwd" if kernel == wce.FWD else "bwd"]
+        e = {"name": f"{kernel}_f16", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/weighted_ce.cu",
+             "replaces": by_name[kernel]["replaces"], "build_seconds": build_s["weighted_ce"],
+             "max_abs_err": w["float16"], **t_time[f"{kernel}_f16"],
+             "launches": f16_out["f16_ce_probe"]["launches"][f"{kernel}_f16"],
+             "launches_path": "scale_f16 probe (f16 policy, 8,192 classes, 2 meta steps)"}
+        if kernel == wce.BWD:
+            e["f16_vs_f32_share_of_bound"] = w["float16_share_of_bound"]
+        if not e["launches"] >= 1:
+            raise AssertionError(f"{e['name']}: no launch on its path")
+        train_entries.append(e)
     log(f"phase_seconds: {json.dumps(secs)} total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": [entry] + train_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,9 @@ package's format (``repro_torch.checkpoint``) and ``profile`` through
 ``repro_torch.perf``; the remaining keywords are ``EngineConfig`` fields
 (``alpha``, ``base_nudge``, ``adapt_clip``, the baselines'
 ``neumann_terms``, ``neumann_scale``, ``cg_iters``, ``cg_damping``, and
-``scale``). Meshes and the distributed schedules come with their slices.
+``scale``, a ``repro_torch.scale.ScaleConfig``: precision policy and
+microbatch count). Meshes and the distributed schedules come with their
+slices.
 
 Typical use::
 
@@ -73,8 +75,10 @@ class MetaLearner:
         self.step_fn = make_meta_step(self.spec, self.base_opt, self.meta_opt, self.cfg)
 
     def init(self, theta: Tree, lam: Tree) -> EngineState:
-        """Build the EngineState: both levels' params + optimizer moments."""
-        self.state = init_state(theta, lam, self.base_opt, self.meta_opt)
+        """Build the EngineState: both levels' params + optimizer moments;
+        a loss-scaling precision policy (f16) also seeds its
+        LossScaleState from ``cfg.scale``."""
+        self.state = init_state(theta, lam, self.base_opt, self.meta_opt, scale=self.cfg.scale)
         return self.state
 
     def step(self, base_batches, meta_batch) -> Dict[str, Any]:
@@ -124,7 +128,8 @@ class MetaLearner:
         if self.state is None:
             raise RuntimeError("call init(theta, lam) or load(...) before profile()")
         extra = {"method": self.method.name, "unroll_steps": self.cfg.unroll_steps,
-                 "microbatch": self.cfg.scale.microbatch, "policy": self.cfg.scale.policy}
+                 "microbatch": self.cfg.scale.microbatch,
+                 "policy": self.cfg.scale.resolve().name}
         return perf.profile_step(name or self.method.name, self.step_fn, self.state,
                                  base_batches, meta_batch, samples_per_step=samples_per_step,
                                  warmup=warmup, repeats=repeats, extra=extra)

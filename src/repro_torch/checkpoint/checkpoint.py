@@ -4,8 +4,11 @@ and ``manifest.json`` their ``names`` (``jax.tree_util.keystr`` of each
 leaf's path, in JAX's leaf order), ``shapes``, ``dtypes``, the ``step`` and
 the caller's ``meta``. A checkpoint the JAX package writes restores here
 and the reverse: the port's ``EngineState`` renders the same names
-(``tree.flatten_with_keys``), the JAX state's ``scale`` field being an
-empty subtree unless a loss-scaling policy runs.
+(``tree.flatten_with_keys``). Its ``scale`` field is an empty subtree
+unless a loss-scaling policy (f16) runs, so an f32 or bf16 state keeps
+its layout (63 leaves at bert-base); under f16 the ``LossScaleState``
+adds ``.scale.scale`` (f32) and ``.scale.good_steps`` (int32) last, in
+JAX's leaf order.
 
 The leaves go to numpy on the host to be saved (bf16 as f32, which holds
 it exactly); on restore they come back on the device and in the dtype of

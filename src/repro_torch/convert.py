@@ -8,9 +8,10 @@ here. The trees have the same nested-dict structure and stacked layer
 axes on both sides, so leaves map one to one. The same functions carry
 decode caches, and ``state_from_jax`` / ``state_to_numpy`` carry a whole
 training state (theta, lam, both optimizers' moments and counts, the
-step) so that both packages can start from one state; moments that are
-nested one level below the parameter tree, as Adafactor's ``{"r", "c"}``
-and ``{"v"}`` statistics, cross as nested dicts.
+step, and under a loss-scaling policy the ``LossScaleState``) so that
+both packages can start from one state; moments that are nested one level
+below the parameter tree, as Adafactor's ``{"r", "c"}`` and ``{"v"}``
+statistics, cross as nested dicts.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core.engine import EngineState
 from repro_torch.models import common as cm
 from repro_torch.optim import OptState
+from repro_torch.scale.policy import LossScaleState
 
 Tree = Any
 
@@ -66,18 +68,20 @@ def state_from_jax(state, *, device="cuda") -> EngineState:
     """A JAX ``EngineState`` (its leaves as numpy, ``jax.tree_util.tree_map(
     np.asarray, state)``) as the port's, on ``device``. Read by field name:
     theta, base_opt_state and meta_opt_state (``OptState`` count, mu, nu),
-    lam, step. The JAX state's loss-scale field has no counterpart yet
-    (only the identity scale policy is ported) and must be None."""
+    lam, step and scale (a ``LossScaleState``'s scale and good_steps, or
+    None)."""
 
-    if getattr(state, "scale", None) is not None:
-        raise ValueError("a loss-scaled JAX state has no counterpart in the port yet")
     device = cm.resolve_device(device)
+    scale = getattr(state, "scale", None)
     return EngineState(
         theta=params_from_jax(state.theta, device=device),
         base_opt_state=_opt_state_from_jax(state.base_opt_state, device),
         lam=params_from_jax(state.lam, device=device),
         meta_opt_state=_opt_state_from_jax(state.meta_opt_state, device),
         step=_to_tensor(state.step, device),
+        scale=None if scale is None else LossScaleState(
+            scale=_to_tensor(scale.scale, device),
+            good_steps=_to_tensor(scale.good_steps, device)),
     )
 
 
@@ -91,8 +95,12 @@ def state_to_numpy(state: EngineState) -> EngineState:
                         mu=None if st.mu is None else params_to_numpy(st.mu),
                         nu=None if st.nu is None else params_to_numpy(st.nu))
 
+    scale = state.scale
     return EngineState(theta=params_to_numpy(state.theta),
                        base_opt_state=opt(state.base_opt_state),
                        lam=params_to_numpy(state.lam),
                        meta_opt_state=opt(state.meta_opt_state),
-                       step=params_to_numpy(state.step))
+                       step=params_to_numpy(state.step),
+                       scale=None if scale is None else LossScaleState(
+                           scale=params_to_numpy(scale.scale),
+                           good_steps=params_to_numpy(scale.good_steps)))

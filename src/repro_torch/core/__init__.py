@@ -10,10 +10,10 @@ from repro_torch.core.engine import (
     Engine,
     EngineConfig,
     EngineState,
-    ScaleConfig,
     init_state,
     make_meta_step,
 )
+from repro_torch.scale.policy import ScaleConfig
 from repro_torch.core.methods import (
     HypergradMethod,
     MethodContext,

@@ -30,7 +30,9 @@ def _dense_init(gen, n_in, n_out, *, device, scale=None):
 
 
 def _dense(p, x):
-    return x @ p["w"] + p["b"]
+    # JAX's type promotion: bf16 or f16 features (a low-precision policy's
+    # per-example losses) meet f32 weights in f32
+    return x.to(torch.promote_types(x.dtype, p["w"].dtype)) @ p["w"] + p["b"]
 
 
 # ---------------------------------------------------------------------------

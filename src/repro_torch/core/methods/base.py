@@ -58,6 +58,11 @@ class MethodContext:
     base_batches: Any  # full unroll batches, leading axis K
     last_batch: Any  # base_batches[-1]
     meta_batch: Any
+    #: the live dynamic loss scale (0-d) under an f16 policy, else None.
+    #: Methods that differentiate through the low-precision spec should
+    #: scale their losses by it before the backward pass and unscale the
+    #: results (SAMA does, plain and microbatched): see repro_torch.scale.
+    loss_scale: Optional[Any] = None
 
 
 class HypergradMethod:

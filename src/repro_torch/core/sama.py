@@ -29,8 +29,11 @@ from the JAX step by itself).
 Gradients are ``torch.autograd.grad`` over fresh leaves that require grad
 (:func:`value_and_grad`); no state tensor ever requires grad. The phases
 carry ``torch.profiler.record_function`` names, the counterpart of the
-JAX package's ``obs.trace.phase``. Dynamic loss scaling waits for the
-port of ``scale/``.
+JAX package's ``obs.trace.phase``. Under a loss-scaling precision policy
+(f16, ``repro_torch.scale``) every backward pass here takes the live scale
+(``loss_scale``): the loss is multiplied by it before the backward pass so
+the low-precision gradients stay representable, and the results are
+divided by it again (:func:`scaled_value_and_grad`).
 """
 
 from __future__ import annotations
@@ -136,14 +139,37 @@ def perturbation_direction(
     base_opt_state: OptState,
     g_base: Optional[Tree],
     cfg: SAMAConfig,
+    loss_scale: Optional[torch.Tensor] = None,
 ):
     """Backward pass 1 + ``adaptation_product``. Returns
-    ``(meta_loss, v, v_sumsq)``."""
+    ``(meta_loss, v, v_sumsq)``. ``loss_scale`` (f16 policy) multiplies
+    the meta loss before its backward pass; the returned loss and
+    gradient are unscaled."""
 
     with record_function("meta_pass"):
-        meta_loss, g_meta = value_and_grad(spec.meta_scalar, 0)(theta, lam, meta_batch)
+        meta_loss, g_meta = scaled_value_and_grad(spec.meta_scalar, 0, loss_scale)(
+            theta, lam, meta_batch)
         v, v_sumsq = adaptation_product(base_opt, base_opt_state, theta, g_base, g_meta, cfg)
     return meta_loss, v, v_sumsq
+
+
+def scaled_value_and_grad(loss_fn, argnums: int, loss_scale: Optional[torch.Tensor]):
+    """:func:`value_and_grad` with the dynamic loss scale applied inside
+    the differentiated function (so every gradient in the low-precision
+    region carries it) and divided out of both results. The plain
+    :func:`value_and_grad` when ``loss_scale`` is None."""
+
+    if loss_scale is None:
+        return value_and_grad(loss_fn, argnums)
+
+    def scaled(*args):
+        return loss_fn(*args) * loss_scale
+
+    def call(*args):
+        loss, g = value_and_grad(scaled, argnums)(*args)
+        return loss / loss_scale, tu.tree_map(lambda x: x / loss_scale, g)
+
+    return call
 
 
 def central_difference_hypergrad(
@@ -155,6 +181,7 @@ def central_difference_hypergrad(
     *,
     cfg: SAMAConfig,
     v_sumsq: Optional[torch.Tensor] = None,
+    loss_scale: Optional[torch.Tensor] = None,
 ):
     """Backward passes 2 + 3, the finite-difference mixed second derivative
 
@@ -165,7 +192,8 @@ def central_difference_hypergrad(
     with record_function("cd_passes"):
         eps = step_size(v, v_sumsq, cfg)
         theta_p, theta_m = perturbed_params(theta, v, eps)
-        delta = central_difference_delta(spec, theta_p, theta_m, lam, base_batch)
+        delta = central_difference_delta(spec, theta_p, theta_m, lam, base_batch,
+                                         loss_scale=loss_scale)
         hyper = tu.tree_map(lambda d: -d / (2.0 * eps), delta)
     return hyper, eps
 
@@ -178,14 +206,28 @@ def perturbed_params(theta: Tree, v: Tree, eps: torch.Tensor):
     return theta_p, theta_m
 
 
-def central_difference_delta(spec: BilevelSpec, theta_p, theta_m, lam, base_batch):
-    """``grad_lam L_base(theta+) - grad_lam L_base(theta-)`` on one batch;
-    the 1/(2 eps) scaling happens once in the caller."""
+def central_difference_delta(spec: BilevelSpec, theta_p, theta_m, lam, base_batch, *,
+                             loss_scale: Optional[torch.Tensor] = None):
+    """``grad_lam L_base(theta+) - grad_lam L_base(theta-)`` on one batch.
+    Linear in the batch mean, so microbatch accumulation of this delta
+    (``repro_torch.scale.accum``) gives the full-batch value; the
+    1/(2 eps) scaling happens once in the caller. ``loss_scale`` scales
+    both backward passes and is divided out of the returned delta, which
+    lies in lam's f32 gradient domain."""
 
-    grad_lam = value_and_grad(spec.base_scalar, 1)
+    if loss_scale is None:
+        scalar = spec.base_scalar
+    else:
+        def scalar(th, la, b):
+            return spec.base_scalar(th, la, b) * loss_scale
+
+    grad_lam = value_and_grad(scalar, 1)
     _, gl_p = grad_lam(theta_p, lam, base_batch)
     _, gl_m = grad_lam(theta_m, lam, base_batch)
-    return tu.tree_map(lambda p, m: p - m, gl_p, gl_m)
+    delta = tu.tree_map(lambda p, m: p - m, gl_p, gl_m)
+    if loss_scale is not None:
+        delta = tu.tree_map(lambda d: d / loss_scale, delta)
+    return delta
 
 
 def sama_hypergrad(

@@ -3,7 +3,7 @@
 //
 // Replaces src/repro/kernels/weighted_ce.py::_ce_fwd_kernel (forward) and
 // ::_ce_bwd_kernel (backward), the two Pallas bodies behind its custom
-// VJP. For logits (R, V) in f32 or bf16 and int32 targets (R,):
+// VJP. For logits (R, V) in f32, bf16 or f16 and int32 targets (R,):
 //   forward:  lse[r] = log sum_c exp(x[r, c]),  ce[r] = lse[r] - x[r, t[r]]
 //             (both f32; a target outside [0, V) adds nothing, as in the
 //             TPU kernel)
@@ -31,6 +31,7 @@
 // 16-byte aligned takes the scalar loop, and so does a ragged end.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -42,14 +43,17 @@ constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
 
-// 16 bytes of T: 4 floats or 8 bf16 (a bf16 is the high half of its f32)
+// 16 bytes of T: 4 floats or 8 bf16 or f16 (a bf16 is the high half of its
+// f32; an f16 converts by the intrinsic, round to nearest even)
 template <typename T> struct Pack { static constexpr int N = 16 / sizeof(T); };
 
 __device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
@@ -70,6 +74,17 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&x)[8]) {
   }
 }
 
+__device__ __forceinline__ void load16(const __half* p, float (&x)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[k]));
+    x[2 * k] = f.x;
+    x[2 * k + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store16(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
@@ -80,6 +95,17 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&x)[8]) {
   for (int k = 0; k < 4; ++k) {
     const unsigned lo = __bfloat16_as_ushort(__float2bfloat16(x[2 * k]));
     const unsigned hi = __bfloat16_as_ushort(__float2bfloat16(x[2 * k + 1]));
+    w[k] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void store16(__half* p, const float (&x)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned lo = __half_as_ushort(__float2half(x[2 * k]));
+    const unsigned hi = __half_as_ushort(__float2half(x[2 * k + 1]));
     w[k] = lo | (hi << 16);
   }
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
@@ -209,7 +235,7 @@ bool bad_shape(long long rows, long long v, long long inner_n) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. logits: rows of v contiguous elements,
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. logits: rows of v contiguous elements,
 // row r starting (r / inner_n) * s_outer + (r % inner_n) * s_inner
 // elements from `logits`; targets (rows,) int32; ce, lse (rows,) float32.
 // Returns the CUDA error of the launch.
@@ -230,6 +256,10 @@ extern "C" int weighted_ce_fwd_launch(const void* logits, const void* targets, v
     case 1:
       ce_fwd_kernel<__nv_bfloat16><<<static_cast<unsigned>(rows), kThreads, 0, st>>>(
           static_cast<const __nv_bfloat16*>(logits), tg, c, ls, v, inner_n, s_outer, s_inner);
+      break;
+    case 2:
+      ce_fwd_kernel<__half><<<static_cast<unsigned>(rows), kThreads, 0, st>>>(
+          static_cast<const __half*>(logits), tg, c, ls, v, inner_n, s_outer, s_inner);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -258,6 +288,11 @@ extern "C" int weighted_ce_bwd_launch(const void* logits, const void* targets, c
       ce_bwd_kernel<__nv_bfloat16><<<static_cast<unsigned>(rows), kThreads, 0, st>>>(
           static_cast<const __nv_bfloat16*>(logits), tg, ls, gg,
           static_cast<__nv_bfloat16*>(dlogits), v, inner_n, s_outer, s_inner);
+      break;
+    case 2:
+      ce_bwd_kernel<__half><<<static_cast<unsigned>(rows), kThreads, 0, st>>>(
+          static_cast<const __half*>(logits), tg, ls, gg, static_cast<__half*>(dlogits), v,
+          inner_n, s_outer, s_inner);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

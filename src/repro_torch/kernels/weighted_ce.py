@@ -30,7 +30,11 @@ from repro_torch.kernels import build, dispatch
 
 FWD, BWD = "weighted_ce_fwd", "weighted_ce_bwd"
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: each dtype's instantiation also counts its launches under its own name,
+#: ``FWD`` + ``"_f16"`` and so on, beside the kernel's count
+INSTANCES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def cross_entropy_fwd_plain(logits: torch.Tensor, targets: torch.Tensor):
@@ -75,7 +79,7 @@ class _CrossEntropy(torch.autograd.Function):
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *, backend=None) -> torch.Tensor:
     """Per-token CE for (..., V) logits and (...) int targets: (...) f32,
     differentiable in ``logits``. CUDA tensors launch the kernels in both
-    passes (f32 or bf16 logits; first order only, a second derivative
+    passes (f32, bf16 or f16 logits; first order only, a second derivative
     raises). CPU tensors (or ``backend="plain"``) take the plain forward's
     ops under autograd, as the JAX package's ``ref`` twin does, so they
     differentiate to any order."""
@@ -137,8 +141,8 @@ def row_layout(logits: torch.Tensor) -> Tuple[int, int, int, int]:
 
 def _check(logits, targets):
     if logits.dtype not in _DTYPE_CODES:
-        raise ValueError(f"weighted_ce: logits are {logits.dtype}; the kernels take float32 "
-                         "or bfloat16")
+        raise ValueError(f"weighted_ce: logits are {logits.dtype}; the kernels take float16, "
+                         "float32 or bfloat16")
     if logits.shape[-1] < 1 or logits.numel() < 1:
         raise ValueError(f"weighted_ce: empty logits {tuple(logits.shape)}")
     rows, inner_n, s_outer, s_inner = row_layout(logits)
@@ -164,6 +168,7 @@ def _fwd_cuda(logits, targets):
     if err != 0:
         raise RuntimeError(f"weighted_ce: forward launch failed with CUDA error {err}")
     dispatch.count_launch(FWD)
+    dispatch.count_launch(f"{FWD}_{INSTANCES[logits.dtype]}")
     return ce, lse
 
 
@@ -182,4 +187,5 @@ def _bwd_cuda(logits, targets, lse, g):
     if err != 0:
         raise RuntimeError(f"weighted_ce: backward launch failed with CUDA error {err}")
     dispatch.count_launch(BWD)
+    dispatch.count_launch(f"{BWD}_{INSTANCES[logits.dtype]}")
     return dlogits

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train [--arch gemma3-1b] \
         [--smoke] [--steps 50] [--batch 8] [--seq 64] [--unroll 2] \
-        [--method sama] [--device cuda] [--ckpt out/ck]
+        [--method sama] [--device cuda] [--ckpt out/ck] \
+        [--precision bf16] [--microbatch 4 | --hbm-budget-gb 40]
 
 Wires together: config registry -> synthetic data -> Model ->
 data-optimization BilevelSpec with MetaWeightNet reweighting ->
@@ -16,6 +17,14 @@ and the data are random, from ``--seed``. It runs on the card unless
 default arch is gemma3-1b, as in the JAX CLI: its per-sequence LM loss
 over 262,144 tokens takes the ``weighted_ce`` kernels; ``bert-base``
 trains the encoder classifier.
+
+The scale knobs (``repro_torch.scale``): ``--precision`` picks the policy
+(f32, bf16, f16), ``--microbatch`` forces an accumulation factor, and
+``--hbm-budget-gb`` asks the planner (``scale.plan_microbatch``) for the
+smallest M whose step fits that budget instead; a line
+``{"planner": {...}}`` then comes first. On the card the planner runs
+each candidate step it measures (from the initial state, which does not
+advance).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import api, configs, data
+from repro_torch import api, configs, data, scale
 from repro_torch.core import available_methods, problems
 from repro_torch.core.engine import packed_read
 from repro_torch.models import Model
@@ -69,6 +78,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--precision", default="f32", choices=sorted(scale.POLICIES),
+                    help="repro_torch.scale precision policy")
+    ap.add_argument("--microbatch", type=int, default=1,
+                    help="accumulate each base batch as M microbatches")
+    ap.add_argument("--hbm-budget-gb", type=float, default=None,
+                    help="let scale.plan_microbatch pick the smallest M whose step fits "
+                         "this device-memory budget (overrides --microbatch)")
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
@@ -77,13 +93,29 @@ def main(argv=None):
         model.classifier_per_example if cfg.family == "encoder" else model.per_example,
         reweight=True,
     )
-    learner = api.MetaLearner(spec, base_opt="adam", base_lr=args.base_lr,
-                              meta_opt="adam", meta_lr=args.meta_lr,
-                              method=args.method, unroll_steps=args.unroll,
-                              checkpoint_dir=args.ckpt)
+    scale_cfg = scale.ScaleConfig(policy=args.precision, microbatch=args.microbatch)
+    learner_args = dict(base_opt="adam", base_lr=args.base_lr, meta_opt="adam",
+                        meta_lr=args.meta_lr, method=args.method, unroll_steps=args.unroll,
+                        checkpoint_dir=args.ckpt)
+    learner = api.MetaLearner(spec, scale=scale_cfg, **learner_args)
     theta = model.init(args.seed)
     lam = problems.init_data_optimization_lam(args.seed + 1, reweight=True, device=model.device)
     learner.init(theta, lam)
+    if args.hbm_budget_gb is not None:
+        # the learner's batch shapes from a throwaway stream, so that the
+        # training stream is a --microbatch run's
+        plan_batch = make_batch_fn(cfg, args.seq, model.device, np.random.default_rng(args.seed))
+        plan = scale.plan_microbatch(
+            spec, learner.base_opt, learner.meta_opt, learner.cfg, learner.state,
+            plan_batch(args.batch, args.unroll), plan_batch(max(args.batch // 2, 1)),
+            hbm_budget=int(args.hbm_budget_gb * 2 ** 30))
+        print(json.dumps({"planner": {"microbatch": plan.microbatch, "fits": plan.fits,
+                                      "peak_bytes": plan.peak_bytes, "source": plan.source,
+                                      "budget_gb": args.hbm_budget_gb,
+                                      "candidates": plan.candidates}}), flush=True)
+        if plan.microbatch != scale_cfg.microbatch:
+            learner = api.MetaLearner(spec, scale=plan.scale, **learner_args)
+            learner.init(theta, lam)
     make_batch = make_batch_fn(cfg, args.seq, model.device, np.random.default_rng(args.seed))
 
     t0 = time.time()

@@ -1,6 +1,14 @@
-"""Nested dicts of tensors as trees: the port's counterpart of
-``jax.tree_util``. Leaves come in sorted-key order (JAX's order for
-dicts), and the key paths serve as the tree structure.
+"""Trees of tensors: the port's counterpart of ``jax.tree_util``.
+Parameters are nested dicts, whose leaves come in sorted-key order (JAX's
+order for dicts) with their key paths as the tree structure
+(``tree_flatten``); whole states are NamedTuples, tuples and lists around
+them (``flatten_with_keys``). ``tree_map`` walks both.
+
+The walks recurse through module-level functions: a nested function that
+calls itself is a reference cycle, which would keep the lists of leaves it
+closes over, and so every tensor of a spent tree, alive until Python's
+cycle collector happens to run: on the card, parameter-sized trees past
+their last use.
 """
 
 from __future__ import annotations
@@ -16,17 +24,17 @@ def tree_flatten(tree: Tree) -> Tuple[List[Any], Tuple[Tuple[str, ...], ...]]:
 
     paths: List[Tuple[str, ...]] = []
     leaves: List[Any] = []
-
-    def rec(node, path):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                rec(node[key], path + (key,))
-        else:
-            paths.append(path)
-            leaves.append(node)
-
-    rec(tree, ())
+    _flatten_dicts(tree, (), paths, leaves)
     return leaves, tuple(paths)
+
+
+def _flatten_dicts(node, path, paths, leaves):
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _flatten_dicts(node[key], path + (key,), paths, leaves)
+    else:
+        paths.append(path)
+        leaves.append(node)
 
 
 def tree_unflatten(paths: Sequence[Tuple[str, ...]], leaves: Sequence[Any]) -> Tree:
@@ -47,15 +55,19 @@ def tree_leaves(tree: Tree) -> List[Any]:
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """``fn`` over the leaves of ``tree`` and of the trees in ``rest``,
-    which must have the same structure (``jax.tree_util.tree_map``)."""
-    leaves, paths = tree_flatten(tree)
+    which must name the same leaves (``jax.tree_util.tree_map``). One walk
+    for every tree the port maps: nested dicts of parameters, and whole
+    states of NamedTuples, tuples and lists (``None`` an empty subtree),
+    in :func:`flatten_with_keys` order."""
+
+    names, leaves = flatten_with_keys(tree)
     others = []
     for other in rest:
-        o_leaves, o_paths = tree_flatten(other)
-        if o_paths != paths:
-            raise ValueError(f"tree structures differ: {paths} vs {o_paths}")
+        o_names, o_leaves = flatten_with_keys(other)
+        if o_names != names:
+            raise ValueError(f"tree structures differ: {names} vs {o_names}")
         others.append(o_leaves)
-    return tree_unflatten(paths, [fn(*xs) for xs in zip(leaves, *others)])
+    return unflatten_like(tree, [fn(*xs) for xs in zip(leaves, *others)])
 
 
 def tree_flatten_up_to(paths: Sequence[Tuple[str, ...]], tree: Tree) -> List[Any]:
@@ -72,7 +84,6 @@ def tree_flatten_up_to(paths: Sequence[Tuple[str, ...]], tree: Tree) -> List[Any
     return out
 
 
-
 def flatten_with_keys(tree: Tree) -> Tuple[List[str], List[Any]]:
     """Leaf names and leaves of a tree of NamedTuples, dicts, tuples and
     lists, the names as ``jax.tree_util.keystr`` renders their paths and in
@@ -82,25 +93,25 @@ def flatten_with_keys(tree: Tree) -> Tuple[List[str], List[Any]]:
 
     names: List[str] = []
     leaves: List[Any] = []
-
-    def rec(node, name):
-        if node is None:
-            return
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            for field in node._fields:
-                rec(getattr(node, field), f"{name}.{field}")
-        elif isinstance(node, dict):
-            for key in sorted(node):
-                rec(node[key], f"{name}[{key!r}]")
-        elif isinstance(node, (tuple, list)):
-            for i, item in enumerate(node):
-                rec(item, f"{name}[{i}]")
-        else:
-            names.append(name)
-            leaves.append(node)
-
-    rec(tree, "")
+    _flatten_keyed(tree, "", names, leaves)
     return names, leaves
+
+
+def _flatten_keyed(node, name, names, leaves):
+    if node is None:
+        return
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        for field in node._fields:
+            _flatten_keyed(getattr(node, field), f"{name}.{field}", names, leaves)
+    elif isinstance(node, dict):
+        for key in sorted(node):
+            _flatten_keyed(node[key], f"{name}[{key!r}]", names, leaves)
+    elif isinstance(node, (tuple, list)):
+        for i, item in enumerate(node):
+            _flatten_keyed(item, f"{name}[{i}]", names, leaves)
+    else:
+        names.append(name)
+        leaves.append(node)
 
 
 def unflatten_like(like: Tree, leaves: Sequence[Any]) -> Tree:
@@ -108,19 +119,19 @@ def unflatten_like(like: Tree, leaves: Sequence[Any]) -> Tree:
     :func:`flatten_with_keys` order, by ``leaves``."""
 
     it = iter(leaves)
-
-    def rec(node):
-        if node is None:
-            return None
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(rec(getattr(node, f)) for f in node._fields))
-        if isinstance(node, dict):
-            return {key: rec(node[key]) for key in sorted(node)}
-        if isinstance(node, (tuple, list)):
-            return type(node)(rec(item) for item in node)
-        return next(it)
-
-    out = rec(like)
+    out = _rebuild(like, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out
+
+
+def _rebuild(node, it):
+    if node is None:
+        return None
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_rebuild(getattr(node, f), it) for f in node._fields))
+    if isinstance(node, dict):
+        return {key: _rebuild(node[key], it) for key in sorted(node)}
+    if isinstance(node, (tuple, list)):
+        return type(node)(_rebuild(item, it) for item in node)
+    return next(it)
