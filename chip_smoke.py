@@ -127,12 +127,34 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    retrain, evaluate, reweighted batches, export and load bitwise, el2n
    and grand, and the scoring losses through the kernels within 2e-2 +
    2e-2 relative of plain_everywhere.
+17. distributed (``repro_torch.launch.distributed``): bert-base at full
+   width in f32, warm rows, base Adam eps 1e-3 (phase 7's). (a) An NCCL
+   group of world size 1 on the card: ``MetaLearner(mesh=,
+   schedule="single_sync")``, three meta steps at batch 16, seq 128,
+   unroll 2, each bitwise equal to the one-process Engine step, with
+   exactly 3 all-reduces (unroll + 1) and their bytes. (b) Two gloo ranks
+   sharing the card (``distributed.spawn``): identical shards bitwise equal
+   to the one-process step on one shard for both schedules; distinct
+   shards (16 rows each) three manual steps held to the in-process
+   emulation and three pjit steps to the one-process step on the 32 rows,
+   phase 7's tolerances, which must hold the two schedules' first steps
+   apart (manual vs pjit in eps or hypergrad_norm beyond them); both ranks'
+   states bitwise equal after every step; the census (3 manual, the code's
+   count for pjit), bytes and each rank's step walls (a barrier before each
+   clock starts; rank 0's references run outside the timed steps), and a
+   lone all-reduce of one base bucket per rank; the flash forward, dq,
+   dk/dv and adam_adapt launched on every rank. Two processes time-share one card over gloo, which stages each
+   all-reduce through the host: not the paper's multi-GPU throughput.
+   (c) ``DataOptimizer(mesh=)`` loss and el2n scores on the two ranks
+   within 1e-5 relative of the one-device pass. (d) A model axis above 1
+   raises ``NotImplementedError``.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. The weights and data are random, from seeds; nothing is downloaded.
 """
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -2112,6 +2134,301 @@ def phase_dataopt(cfg, dev, out_dir, n=4096, n_meta=512, n_test=512, seq=128, st
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the distributed schedules
+# ---------------------------------------------------------------------------
+
+def _dist_kernels():
+    """The kernels of the training path, held launched on every rank."""
+    from repro_torch.kernels import flash_attn
+
+    return (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV, "adam_adapt")
+
+
+def _digest(state):
+    """sha256 over every leaf's bytes: two ranks' states bitwise equal."""
+    from repro_torch import tree
+
+    h = hashlib.sha256()
+    for x in tree.flatten_with_keys(state)[1]:
+        h.update(x.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _bitwise_step(got, ref):
+    from repro_torch import tree
+
+    (gs, gm), (rs, rm) = got, ref
+    la, lb = tree.flatten_with_keys(gs)[1], tree.flatten_with_keys(rs)[1]
+    return (len(la) == len(lb) and all(torch.equal(a, b) for a, b in zip(la, lb))
+            and all(torch.equal(gm[k], rm[k]) for k in rm))
+
+
+def _dist_bert(dev, unroll, mesh=None, schedule="auto"):
+    """bert-base in f32 with base Adam eps 1e-3 (phase 7's learner), on a
+    mesh with a schedule or, without one, the one-process Engine step."""
+    from repro_torch import configs, optim
+    from repro_torch.models import Model
+
+    cfg = configs.get_config("bert-base").replace(dtype="float32")
+    model = Model(cfg, device=dev)
+    knobs = {} if mesh is None else {"mesh": mesh, "schedule": schedule}
+    return cfg, model, _learner(model, dev, unroll, optim.adam(1e-3, eps=1e-3), **knobs)
+
+
+def _dist_rank(rank, out_dir, batch, seq, unroll, steps):
+    """17(b) and (c) on one of two gloo ranks sharing cuda:0 (spawned: the
+    parent holds a CUDA context). Rank 0 also runs the one-process
+    references, outside the timed steps: a barrier before each step's
+    clock starts keeps rank 1 from timing its wait for rank 0's reference.
+    Then each rank times a lone all-reduce of one base bucket (theta's
+    elements in f32). Results go to phase17_rank{rank}.pt."""
+    from repro_torch import dataopt, tree
+    from repro_torch.core.engine import packed_read
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch.mesh import make_data_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_data_mesh(device=dev)
+    cfg, model, man = _dist_bert(dev, unroll, mesh, "single_sync")
+    pj = _learner(model, dev, unroll, man.base_opt, mesh=mesh, schedule="pjit")
+    one = _learner(model, dev, unroll, man.base_opt) if rank == 0 else None
+    train, _ = _wrench(cfg, seq, 256, 16, SEED + 170)
+    state0 = man.state
+    out = {"rank": rank, "backend": mesh.backend, "digests": {}}
+
+    # identical shards: both ranks' rows are one 16-row batch
+    b16, m16 = _warm_batches(train, dev, batch, unroll, SEED + 171)(0)
+    tiled_b = {k: torch.cat([v, v], dim=1) for k, v in b16.items()}
+    tiled_m = {k: torch.cat([v, v], dim=0) for k, v in m16.items()}
+    ref = one.step_fn(state0, b16, m16) if rank == 0 else None
+    for name, learner in (("manual", man), ("pjit", pj)):
+        got = learner.step_fn(state0, tiled_b, tiled_m)
+        out["digests"][f"identical/{name}"] = _digest(got[0])
+        if rank == 0:
+            out[f"identical_bitwise/{name}"] = _bitwise_step(got, ref)
+        del got
+    del ref
+
+    # distinct shards: 32 rows, 16 per rank, phase 7's held step pairs
+    # against the emulation (manual) and the one-process 32-row step (pjit)
+    batches = _warm_batches(train, dev, 2 * batch, unroll, SEED + 172)
+    for name, learner in (("manual", man), ("pjit", pj)):
+        state, walls, census, rows, metrics_by_step = state0, [], [], [], []
+        launches = dict.fromkeys(_dist_kernels(), 0)
+        for i in range(steps):
+            base, meta = batches(i)
+            torch.cuda.synchronize()
+            dispatch.reset_launches()  # the distributed step's own, not the references'
+            D.collective("barrier", None, mesh)  # both clocks start together
+            t0 = time.perf_counter()
+            with D.CollectiveCounter() as counter:
+                new, metrics = learner.step_fn(state, base, meta)
+                got = packed_read(metrics)
+            walls.append(time.perf_counter() - t0)
+            launches = {k: n + dispatch.launches(k) for k, n in launches.items()}
+            census.append((counter.counts["all-reduce"], counter.bytes["all-reduce"]))
+            metrics_by_step.append(got)
+            out["digests"][f"{name}/{i}"] = _digest(new)
+            if rank == 0:
+                if name == "manual":
+                    ref_s, ref_m = D.emulate_manual_step(man.spec, man.base_opt, man.meta_opt,
+                                                         man.cfg, 2, state, base, meta)
+                else:
+                    ref_s, ref_m = one.step_fn(state, base, meta)
+                diff = _diff(got, packed_read(ref_m), {"theta": new.theta, "lam": new.lam},
+                             {"theta": ref_s.theta, "lam": ref_s.lam}, state)
+                del ref_s
+                _hold(f"distributed {name} step {i}", diff)
+                rows.append(diff)
+            state = new
+        out[name] = {"walls_s": walls, "census": census, "held": rows, "launches": launches,
+                     "metrics": metrics_by_step}
+    del state, new
+
+    # one base bucket's all-reduce alone, as the schedules make it
+    bucket = torch.zeros(sum(x.numel() for x in tree.tree_leaves(state0.theta)),
+                         dtype=torch.float32, device=dev)
+    out["bucket_bytes"], out["bucket_all_reduce_s"] = bucket.numel() * 4, []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        D.collective("barrier", None, mesh)
+        t0 = time.perf_counter()
+        D.collective("all-reduce", bucket, mesh)
+        torch.cuda.synchronize()
+        out["bucket_all_reduce_s"].append(time.perf_counter() - t0)
+    del bucket
+
+    # (c) sharded scoring on both ranks; rank 0 holds it against the
+    # one-device pass
+    theta = state0.theta
+    scores = {}
+    for scorer in ("loss", "el2n"):
+        opt = dataopt.DataOptimizer(model, train, scorer=scorer, theta=theta, batch_size=64,
+                                    mesh=mesh)
+        scores[scorer] = opt.fit_scores()
+        if rank == 0:
+            want = dataopt.DataOptimizer(model, train, scorer=scorer, theta=theta,
+                                         batch_size=64, device=dev).fit_scores()
+            worst = float(np.max(np.abs(scores[scorer] - want)
+                                 / (1e-7 + 1e-5 * np.abs(want))))
+            out[f"scoring/{scorer}_share_of_bound"] = worst
+            if not worst <= 1.0:
+                raise AssertionError(f"sharded {scorer} scores: {worst:.3f} of the bound")
+        out["digests"][f"scoring/{scorer}"] = hashlib.sha256(scores[scorer].tobytes()).hexdigest()
+    torch.save(out, os.path.join(out_dir, f"phase17_rank{rank}.pt"))
+
+
+def phase_distributed(dev, out_dir, batch=16, seq=128, unroll=2, steps=3):
+    """17: the distributed schedules (``launch.distributed``) at bert-base's
+    full width in f32, warm rows, base Adam eps 1e-3 (phase 7's setting).
+    (a) NCCL, world 1, on cuda:0: ``MetaLearner(mesh=, schedule=
+    "single_sync")``, three meta steps at batch 16, seq 128, unroll 2,
+    each bitwise equal to the one-process Engine step from the same state,
+    with exactly unroll + 1 = 3 all-reduces per step. (b) Two gloo ranks
+    sharing cuda:0 (``distributed.spawn``, the spawn start method): with
+    identical 16-row shards both schedules bitwise equal to the one-process
+    step on one shard; with distinct shards (32 rows) three manual steps
+    held to ``emulate_manual_step`` and three pjit steps to the one-process
+    step on the 32 rows, phase 7's tolerances, which must hold the two
+    schedules' first steps apart; the two ranks' states bitwise equal
+    after every step (sha256); the census (3 manual, the code's count for
+    pjit, above 3) with bytes and each rank's step walls, beside a lone
+    all-reduce of one base bucket; the
+    flash forward, dq, dk/dv and adam_adapt launched on every rank. Two
+    processes time-share one card and gloo stages each all-reduce through
+    the host: this is not the paper's multi-GPU throughput. (c) On the two
+    ranks, ``DataOptimizer(mesh=)`` loss and el2n scores within
+    tests/test_torch_dataopt.py's f32 tolerance (1e-5 relative) of the
+    one-device pass. (d) A model axis above 1 raises NotImplementedError."""
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import packed_read
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch import mesh as M
+
+    res = {}
+    store_dir = os.path.join(out_dir, "phase17")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    os.makedirs(store_dir)
+
+    # (a) NCCL, world 1
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "nccl"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = M.make_data_mesh(device=dev)
+        if mesh.backend != "nccl":
+            raise AssertionError(f"17(a): the mesh runs {mesh.backend}, not nccl")
+        cfg, model, man = _dist_bert(dev, unroll, mesh, "single_sync")
+        eng = _learner(model, dev, unroll, man.base_opt)
+        train, _ = _wrench(cfg, seq, 256, 16, SEED + 173)
+        batches = _warm_batches(train, dev, batch, unroll, SEED + 174)
+        state, rows = man.state, []
+        launches = dict.fromkeys(_dist_kernels(), 0)
+        for i in range(steps):
+            base, meta = batches(i)
+            dispatch.reset_launches()  # the schedule's step, not the reference's
+            with D.CollectiveCounter() as counter:
+                got = man.step_fn(state, base, meta)
+            launches = {k: n + dispatch.launches(k) for k, n in launches.items()}
+            ref = eng.step_fn(state, base, meta)
+            ok = _bitwise_step(got, ref)
+            rows.append({"bitwise": ok, "all_reduces": counter.counts["all-reduce"],
+                         "bytes": counter.bytes["all-reduce"], **packed_read(got[1])})
+            if not ok or counter.counts["all-reduce"] != unroll + 1:
+                raise AssertionError(f"17(a) step {i}: {rows[-1]}")
+            state = got[0]
+            del ref
+        res["nccl_world1"] = {"steps": rows, "launches": launches}
+        if not all(v > 0 for v in res["nccl_world1"]["launches"].values()):
+            raise AssertionError(f"17(a): launches {res['nccl_world1']['launches']}")
+        del man, eng, state, got, model
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log("distributed_nccl_world1: " + json.dumps(res["nccl_world1"]))
+
+    # (b), (c): two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    D.spawn(_dist_rank, 2, (store_dir, batch, seq, unroll, steps), store_dir=store_dir,
+            backend="gloo", timeout_s=900)
+    ranks = [torch.load(os.path.join(store_dir, f"phase17_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    r0, r1 = ranks
+    if r0["digests"] != r1["digests"]:
+        bad = [k for k in r0["digests"] if r0["digests"][k] != r1["digests"].get(k)]
+        raise AssertionError(f"17(b): the ranks' states differ after {bad}")
+    for name in ("manual", "pjit"):
+        if not r0[f"identical_bitwise/{name}"]:
+            raise AssertionError(f"17(b): {name} on identical shards is not bitwise the "
+                                 "one-process step")
+        counts = {c for r in ranks for c, _ in r[name]["census"]}
+        if name == "manual" and counts != {unroll + 1}:
+            raise AssertionError(f"17(b): manual census {counts}")
+        if name == "pjit" and (len(counts) != 1 or not min(counts) > unroll + 1):
+            raise AssertionError(f"17(b): pjit census {counts}")
+        if r0[name]["launches"] != r1[name]["launches"] or not all(
+                v > 0 for v in r0[name]["launches"].values()):
+            raise AssertionError(f"17(b): {name} launches by rank "
+                                 f"{[r[name]['launches'] for r in ranks]}")
+    # the held tolerances must tell the schedules apart: from one state and
+    # one batch, manual and pjit lie this many F32_TOLs apart
+    first = [r0[name]["metrics"][0] for name in ("manual", "pjit")]
+    apart = {k: abs(first[0][k] - first[1][k]) / (F32_TOL[k] * abs(first[1][k]))
+             for k in ("eps", "hypergrad_norm")}
+    if not max(apart.values()) > 1.0:
+        raise AssertionError(f"17(b): manual and pjit within the held tolerance {apart}: "
+                             "the oracles cannot tell the schedules apart")
+    summary = {"manual_vs_pjit_step0_in_tolerances": apart}
+    for name in ("manual", "pjit"):
+        summary[name] = {
+            "all_reduces_per_step": r0[name]["census"][0][0],
+            "all_reduce_bytes_per_step": r0[name]["census"][0][1],
+            "wall_ms_by_rank": [[1e3 * w for w in r[name]["walls_s"]] for r in ranks],
+            "wall_ms_median_by_rank": [1e3 * float(np.median(r[name]["walls_s"][1:]))
+                                       for r in ranks],
+            "launches_per_rank": [r[name]["launches"] for r in ranks],
+            "worst_vs_reference": {k: max(d[k][2] for d in r0[name]["held"])
+                                   for k in F32_TOL},
+            "theta_share_of_bound": max(d["theta_share_of_bound"] for d in r0[name]["held"]),
+            "lam_share_of_bound": max(d["lam_share_of_bound"] for d in r0[name]["held"])}
+    res["gloo_2_ranks"] = {
+        "backend": r0["backend"], "batch_per_rank": batch, "seq": seq, "unroll": unroll,
+        "steps": steps, "identical_shards_bitwise": True, "ranks_bitwise_equal": True,
+        **summary, "bucket_bytes": r0["bucket_bytes"],
+        "bucket_all_reduce_ms_by_rank": [[1e3 * w for w in r["bucket_all_reduce_s"]]
+                                         for r in ranks],
+        "seconds": time.perf_counter() - t0,
+        "caveat": "two processes time-share one card and gloo stages every all-reduce "
+                  "through the host: not the paper's multi-GPU throughput"}
+    res["sharded_scoring"] = {k: v for k, v in r0.items() if k.startswith("scoring/")}
+    log("distributed_gloo_2_ranks: " + json.dumps(res["gloo_2_ranks"]))
+    log("distributed_scoring: " + json.dumps(res["sharded_scoring"]))
+
+    # (d) the refusals
+    refused = []
+    for what, call in (("Mesh(data 1, model 2)",
+                        lambda: M.Mesh(("data", "model"), {"data": 1, "model": 2}, None, 0, 1,
+                                       dev)),
+                       ("Mesh(pod 1, data 1, model 4)",
+                        lambda: M.Mesh(("pod", "data", "model"),
+                                       {"pod": 1, "data": 1, "model": 4}, None, 0, 1, dev))):
+        try:
+            call()
+        except NotImplementedError as e:
+            refused.append(f"{what}: {e}")
+            continue
+        raise AssertionError(f"17(d): {what} did not raise")
+    res["refusals"] = refused
+    log("distributed_refusals: " + json.dumps(refused))
+    return res
+
+
 PHASES = ("base_unroll", "local_terms", "meta_pass", "cd_passes", "finalize", "meta_update")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -2423,6 +2740,14 @@ def main():
     f16_out = timed("scale_f16", phase_scale_f16, cfg, dev)
     torch.cuda.empty_cache()
     timed("dataopt", phase_dataopt, bert, dev, args.out)
+    torch.cuda.empty_cache()
+
+    # phase 17: the distributed schedules (NCCL world 1, two gloo ranks)
+    dist_out = timed("distributed", phase_distributed, dev, args.out)
+    for name, n in dist_out["gloo_2_ranks"]["manual"]["launches_per_rank"][0].items():
+        by_name[name]["launches_distributed_per_rank"] = n
+        by_name[name]["launches_distributed_path"] = (
+            "distributed manual, each of 2 gloo ranks (3 meta steps)")
 
     # launches: each kernel's count from this slice's main path (the gemma3-1b
     # bf16 run) where it runs there, else from the run that drives it (the

@@ -7,8 +7,12 @@ package's format (``repro_torch.checkpoint``) and ``profile`` through
 (``alpha``, ``base_nudge``, ``adapt_clip``, the baselines'
 ``neumann_terms``, ``neumann_scale``, ``cg_iters``, ``cg_damping``, and
 ``scale``, a ``repro_torch.scale.ScaleConfig``: precision policy and
-microbatch count). Meshes and the distributed schedules come with their
-slices.
+microbatch count). A ``mesh`` (``repro_torch.launch.mesh``) runs the step
+data parallel over ``torch.distributed`` with one of the ``SCHEDULES``:
+the paper's single-sync schedule or the global-batch (pjit) baseline
+(``repro_torch.launch.distributed``). Every rank builds the same learner,
+calls it with the same global batches and keeps the same state; only
+rank 0 writes a checkpoint, and every rank loads it.
 
 Typical use::
 
@@ -32,11 +36,15 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 from repro_torch import checkpoint, optim
 from repro_torch.core.bilevel import BilevelSpec
-from repro_torch.core.engine import (EngineConfig, EngineState, init_state, make_meta_step,
-                                     run_loop)
+from repro_torch.core.engine import EngineConfig, EngineState, init_state, run_loop
 from repro_torch.core.methods import HypergradMethod
 
 Tree = Any
+
+#: "auto": single_sync when a mesh is given, else the Engine step;
+#: "pjit": the global-batch step (the Engine step without a mesh);
+#: "single_sync": the paper's one-bucket schedule, which needs a mesh
+SCHEDULES = ("auto", "pjit", "single_sync")
 
 _ENGINE_FIELDS = {f.name for f in dataclasses.fields(EngineConfig)}
 
@@ -56,9 +64,14 @@ class MetaLearner:
         meta_lr: float = 1e-3,
         method: Union[str, HypergradMethod] = "sama",
         unroll_steps: int = 1,
+        mesh=None,
+        schedule: str = "auto",
+        allow_nonlinear: bool = False,
         checkpoint_dir: Optional[str] = None,
         **method_knobs,
     ):
+        if schedule not in SCHEDULES:
+            raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
         unknown = set(method_knobs) - _ENGINE_FIELDS
         if unknown:
             raise TypeError(f"unknown method knobs {sorted(unknown)}; "
@@ -72,7 +85,20 @@ class MetaLearner:
         self.method = self.cfg.resolve()
         self.checkpoint_dir = checkpoint_dir
         self.state: Optional[EngineState] = None
-        self.step_fn = make_meta_step(self.spec, self.base_opt, self.meta_opt, self.cfg)
+        self.mesh = mesh
+        if schedule == "auto":
+            schedule = "single_sync" if mesh is not None else "pjit"
+        from repro_torch.launch.distributed import make_manual_step, make_pjit_step
+
+        if schedule == "single_sync":
+            if mesh is None:
+                raise ValueError("schedule='single_sync' needs a mesh")
+            self.step_fn = make_manual_step(self.spec, self.base_opt, self.meta_opt, self.cfg,
+                                            mesh, allow_nonlinear=allow_nonlinear)
+        else:  # the Engine step, as the global-batch estimator under a mesh
+            self.step_fn = make_pjit_step(self.spec, self.base_opt, self.meta_opt, self.cfg,
+                                          mesh)
+        self.schedule = schedule
 
     def init(self, theta: Tree, lam: Tree) -> EngineState:
         """Build the EngineState: both levels' params + optimizer moments;
@@ -127,19 +153,41 @@ class MetaLearner:
 
         if self.state is None:
             raise RuntimeError("call init(theta, lam) or load(...) before profile()")
-        extra = {"method": self.method.name, "unroll_steps": self.cfg.unroll_steps,
+        extra = {"method": self.method.name, "schedule": self.schedule,
+                 "unroll_steps": self.cfg.unroll_steps,
                  "microbatch": self.cfg.scale.microbatch,
                  "policy": self.cfg.scale.resolve().name}
+        if self.mesh is not None:
+            extra.update(mesh=dict(self.mesh.shape), backend=self.mesh.backend)
         return perf.profile_step(name or self.method.name, self.step_fn, self.state,
                                  base_batches, meta_batch, samples_per_step=samples_per_step,
                                  warmup=warmup, repeats=repeats, extra=extra)
+
+    def verify_census(self, base_batches, meta_batch) -> Dict[str, Any]:
+        """Run one step on these batches under a ``CollectiveCounter`` and
+        check the census against the pinned ``unroll_steps + 1``
+        all-reduces (``perf.verify_single_sync``). The learner's state does
+        not advance (the step is a function of it). Meaningful on the
+        single-sync schedule: the others pin nothing. Under a mesh every
+        rank must call it, as every collective needs every rank."""
+
+        from repro_torch.launch.distributed import CollectiveCounter
+        from repro_torch.perf import collectives
+
+        if self.state is None:
+            raise RuntimeError("call init(theta, lam) or load(...) before verify_census()")
+        with CollectiveCounter() as counter:
+            self.step_fn(self.state, base_batches, meta_batch)
+        return collectives.verify_single_sync(counter, self.cfg.unroll_steps)
 
     # -- checkpointing -----------------------------------------------------
 
     def save(self, path: Optional[str] = None, *, meta: Optional[Dict[str, Any]] = None) -> str:
         """Checkpoint the full EngineState. Default path:
         ``{checkpoint_dir}/step_{NNNNNN}``. ``meta`` entries are merged into
-        the manifest beside the learner's own (method, unroll_steps)."""
+        the manifest beside the learner's own (method, unroll_steps, and
+        the schedule under a mesh). Under a mesh every rank calls it: rank
+        0 writes (the ranks hold one state) and all return after it has."""
 
         if self.state is None:
             raise RuntimeError("nothing to save: no state")
@@ -149,9 +197,17 @@ class MetaLearner:
                 raise ValueError("no path given and no checkpoint_dir configured")
             path = os.path.join(self.checkpoint_dir, f"step_{step:06d}")
         manifest_meta = {"method": self.method.name, "unroll_steps": self.cfg.unroll_steps}
+        if self.mesh is not None:
+            manifest_meta["schedule"] = self.schedule
         if meta:
             manifest_meta.update(meta)
-        checkpoint.save(path, self.state, step=step, meta=manifest_meta)
+        if self.mesh is None or self.mesh.rank == 0:
+            checkpoint.save(path, self.state, step=step, meta=manifest_meta)
+        if self.mesh is not None:
+            # every rank returns once the checkpoint is on disk
+            from repro_torch.launch.distributed import collective
+
+            collective("barrier", None, self.mesh)
         return path
 
     def load(self, path: Optional[str] = None) -> EngineState:

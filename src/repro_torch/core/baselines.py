@@ -28,6 +28,7 @@ from typing import Any, List, Sequence
 import torch
 
 from repro_torch import tree as tu
+from repro_torch.core import sync
 from repro_torch.core.bilevel import BilevelSpec
 from repro_torch.core.sama import value_and_grad
 from repro_torch.kernels import dispatch
@@ -47,14 +48,25 @@ def _live(tree: Tree):
     return tu.tree_unflatten(paths, live), live, paths
 
 
-def _grad(out: torch.Tensor, inputs: Sequence[torch.Tensor], *,
-          create_graph: bool = False) -> List[torch.Tensor]:
+def _raw_grad(out: torch.Tensor, inputs: Sequence[torch.Tensor], *,
+              create_graph: bool = False) -> List[torch.Tensor]:
     """``torch.autograd.grad`` with zeros for inputs ``out`` does not reach
     (and for an ``out`` that reaches none), as ``jax.grad`` gives them."""
     if not out.requires_grad:
         return [torch.zeros_like(x) for x in inputs]
     grads = torch.autograd.grad(out, inputs, create_graph=create_graph, allow_unused=True)
     return [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+
+
+def _grad(out: torch.Tensor, inputs: Sequence[torch.Tensor], *,
+          create_graph: bool = False) -> List[torch.Tensor]:
+    """:func:`_raw_grad`; a first-order result is averaged over the data
+    shards under the global-batch schedule's reducer (``core.sync``). The
+    Hessian-vector and mixed products are linear in the batch, so their
+    inner gradient (``create_graph``) stays the shard's and the outer one
+    is reduced."""
+    grads = _raw_grad(out, inputs, create_graph=create_graph)
+    return grads if create_graph else sync.mean(grads)
 
 
 def hvp(loss_theta, theta: Tree, vec: Tree) -> Tree:
@@ -183,19 +195,28 @@ def iterdiff_hypergrad(
     # must take the route their forward took (torch.utils.checkpoint raises
     # when the saved tensors differ), and a remat layer of the meta loss
     # would recompute plain in that same backward.
+    #
+    # Under the global-batch reducer the unroll is not linear in the batch:
+    # each base gradient is averaged inside the graph (sync.mean_graph) and
+    # the replicated theta and lam enter each shard's loss through
+    # sync.enter, whose backward averages the shards' cotangents, so lam's
+    # gradient comes out global; outside it both are the identity.
     with dispatch.second_order():
-        lm, lam_live, lam_paths = _live(lam)
+        lm_live, lam_live, lam_paths = _live(lam)
         with torch.enable_grad():
+            lm = sync.enter(lm_live)
             th = tu.tree_map(lambda x: x.detach().requires_grad_(True), theta)
             state = base_opt.init(theta)
             for i in range(tu.tree_leaves(base_batches)[0].shape[0]):
                 batch = tu.tree_map(lambda x: x[i], base_batches)
-                leaves, paths = tu.tree_flatten(th)
-                g = _grad(spec.base_scalar(th, lm, batch), leaves, create_graph=True)
-                upd, state = base_opt.update(tu.tree_unflatten(paths, g), state, th)
+                th_in = sync.enter(th)
+                leaves, paths = tu.tree_flatten(th_in)
+                g = _raw_grad(spec.base_scalar(th_in, lm, batch), leaves, create_graph=True)
+                g = sync.mean_graph(tu.tree_unflatten(paths, g))
+                upd, state = base_opt.update(g, state, th)
                 th = apply_updates(th, upd)
-            meta = spec.meta_scalar(th, lm, meta_batch)
-        return tu.tree_unflatten(lam_paths, _grad(meta, lam_live))
+            meta = spec.meta_scalar(sync.enter(th), lm, meta_batch)
+        return tu.tree_unflatten(lam_paths, _raw_grad(meta, lam_live))
 
 
 HYPERGRAD_BASELINES = {

@@ -9,7 +9,10 @@ a Python loop takes the place of ``lax.scan``, and every value, the metrics
 included, stays on the device until a caller reads it.
 
 The step is method-agnostic: unroll -> ``method.local_terms`` -> identity
-reduce (one device) -> ``method.finalize`` -> meta update. ``cfg.scale``
+reduce (one device) -> ``method.finalize`` -> meta update. The
+distributed schedules (``repro_torch.launch.distributed``) drive the same
+protocol: the single-sync one puts its one bucketed all-reduce between
+stages 2 and 3, the global-batch one runs this step under a reducer. ``cfg.scale``
 (``repro_torch.scale``) applies a precision policy's cast boundary to both
 levels, accumulates every batch-sized backward pass over M microbatches,
 and, under a loss-scaling policy (f16), skips a base step or the meta
@@ -101,7 +104,7 @@ def init_state(theta: Tree, lam: Tree, base_opt: Optimizer, meta_opt: Optimizer,
 
 def _unroll_base(spec: BilevelSpec, base_opt: Optimizer, theta, opt_state, lam, base_batches,
                  *, scale_cfg: Optional[ScaleConfig] = None,
-                 scale_state: Optional[LossScaleState] = None):
+                 scale_state: Optional[LossScaleState] = None, grad_reduce=None):
     """K base optimizer steps. Carries the last base gradient and the
     optimizer state at which it was computed: SAMA's adaptation matrix is
     evaluated there (paper footnote 2: no extra backward pass).
@@ -111,7 +114,9 @@ def _unroll_base(spec: BilevelSpec, base_opt: Optimizer, theta, opt_state, lam, 
     microbatch loss by the live scale before its backward pass and skips
     the update on a non-finite gradient: parameters, moments and the
     carried (g, state-at-g) pair keep their values, and the automaton
-    backs off.
+    backs off. ``grad_reduce`` is the single-sync schedule's per-step DDP
+    reduce (``launch.distributed``): it runs on the gradient accumulated
+    over the microbatches, so a base step makes one all-reduce for every M.
 
     Returns ``(theta, opt_state, g_last, state_at_g, losses (K,),
     scale_state, any_finite)``: ``any_finite`` (0-d bool, True without
@@ -141,6 +146,8 @@ def _unroll_base(spec: BilevelSpec, base_opt: Optimizer, theta, opt_state, lam, 
         loss, g = accum_mod.microbatch_value_and_grad(
             spec.base_scalar, theta, lam, batch, cfg.microbatch, policy.accum_torch,
             scale=scale_state)
+        if grad_reduce is not None:
+            g = grad_reduce(g)
         losses.append(loss)
         if scale_state is None:
             state_at_g, g_last = opt_state, g

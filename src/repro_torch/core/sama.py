@@ -45,6 +45,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import tree as tu
+from repro_torch.core import sync
 from repro_torch.core.bilevel import BilevelSpec
 from repro_torch.optim import Optimizer, OptState
 
@@ -73,7 +74,9 @@ def value_and_grad(loss_fn, argnums: int):
     """``jax.value_and_grad`` for a loss over trees of tensors: the tree at
     position ``argnums`` is replaced by detached leaves that require grad,
     and ``torch.autograd.grad`` returns a tree of gradients like it (zeros
-    for leaves the loss does not reach). Returns (loss detached, grads)."""
+    for leaves the loss does not reach). Returns (loss detached, grads).
+    Under the global-batch schedule's reducer (``core.sync``) the grads
+    are averaged over the data shards; the loss stays the shard's."""
 
     def call(*args):
         args = list(args)
@@ -84,7 +87,7 @@ def value_and_grad(loss_fn, argnums: int):
             loss = loss_fn(*args)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(live, grads)]
-        return loss.detach(), tu.tree_unflatten(paths, grads)
+        return loss.detach(), sync.mean(tu.tree_unflatten(paths, grads))
 
     return call
 

@@ -158,6 +158,10 @@ class BatchIterator:
     def __next__(self):
         idx = self._base_idx()
         midx = self.rng.integers(0, self.nm, size=self.mbs)
+        return self._batches(idx, midx)
+
+    def _batches(self, idx: np.ndarray, midx: np.ndarray):
+        """The (base, meta) batches of drawn indices, on the device."""
         base = {k: self._put(v[idx]) for k, v in self.base.items()}
         meta = {k: self._put(v[midx]) for k, v in self.meta.items()}
         return base, meta

@@ -5,9 +5,10 @@ The application layer of the paper's Sec. 4: per-example scoring
 the EL2N, GraNd, margin, loss and random heuristics), prune schedules with
 a retrain harness, online score-proportional reweighting, full-dataset
 scoring and score export in the JAX package's format, behind the
-``DataOptimizer`` facade where the scorer is one argument. One device:
-meshes wait for ROADMAP queue 1 item 3, the observability hooks for item
-6.
+``DataOptimizer`` facade where the scorer is one argument. A mesh
+(``repro_torch.launch.mesh``) shards the full-dataset passes, the
+reweighted batches and the meta scorer's meta-training over its data
+axes; the observability hooks wait for ROADMAP queue 1 item 6.
 """
 
 from repro_torch.dataopt.distributed import batch_sharding, map_batches, score_dataset

@@ -1,4 +1,5 @@
-"""Full-dataset scoring on one device, after ``src/repro/dataopt/distributed.py``.
+"""Full-dataset scoring, sharded over a mesh's data axes when one is
+given, after ``src/repro/dataopt/distributed.py``.
 
 Every score of this subsystem is a per-example quantity with no
 cross-example reduction, so a dataset is scored batch by batch.
@@ -7,16 +8,19 @@ dataset in fixed-size batches, the tail padded by wrapping around to row 0
 so that every call sees one shape, under ``torch.no_grad()``, the results
 brought to the host as numpy and the padding sliced off.
 
-The JAX package also shards these passes over a mesh's data axes
-(``batch_sharding``, ``mesh=``). The port runs on one device: a mesh waits
-for the distributed schedule (ROADMAP queue 1 item 3), and passing one
-raises.
+With a ``mesh`` (``repro_torch.launch.mesh``) each batch shards over the
+data axes as a training batch does (``batch_sharding``): each rank scores
+its contiguous ``batch_size / ranks`` rows of every batch and writes them
+into a zero-filled (N, ...) buffer per output leaf; one all-reduce SUM
+per leaf then gives every rank the full result (adding zeros is exact,
+and gloo all-reduces CUDA tensors where it would not all-gather them).
+Per row the math is the one-device math, on batches of another size.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,21 +29,20 @@ from repro_torch.device import resolve_device
 
 Tree = Any
 
-_NO_MESH = ("sharded scoring over a mesh comes with the distributed schedule "
-            "(ROADMAP queue 1 item 3); the port scores on one device: pass mesh=None")
 
+def batch_sharding(mesh) -> Optional[Callable[[int], slice]]:
+    """This rank's rows of a (B, ...) batch over the mesh's data axes, as a
+    function of B (``Mesh.rows``); None without a mesh. A non-``Mesh``
+    object raises ``TypeError``."""
 
-def check_no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    if mesh is None:
+        return None
+    from repro_torch.launch.mesh import Mesh
 
-
-def batch_sharding(mesh):
-    """The batch sharding over a mesh's data axes: None without a mesh; a
-    mesh raises (ROADMAP queue 1 item 3)."""
-
-    check_no_mesh(mesh)
-    return None
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    return mesh.rows
 
 
 def _map_out(fn, out):
@@ -82,37 +85,79 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _pad_to(n: int, batch_size: int, mesh) -> int:
+    """Padded dataset length: a multiple of batch_size, which must divide
+    over the mesh's data-parallel ranks."""
+
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} must divide over the mesh's data axes "
+                         f"({mesh.size} ranks) for sharded scoring")
+    return ((n + batch_size - 1) // batch_size) * batch_size
+
+
 def map_batches(batch_fn: Callable[..., Any], dataset: Dict[str, np.ndarray], *,
                 args: Tuple = (), fields: Tuple[str, ...], batch_size: int = 128, mesh=None,
                 device="cuda") -> Any:
     """``batch_fn(*args, batch)`` over the whole dataset (batch: a dict of
     (B, ...) tensors on ``device``, ``"cuda"`` unless the caller passes
-    ``device="cpu"``), the outputs concatenated along the leading axis as
-    numpy. The tail batch is padded by wrapping to row 0 and the padding
-    is sliced off, so every call sees ``batch_size`` rows. Runs under
+    ``device="cpu"``; the mesh's device under a mesh, where the outputs
+    must be tensors), the outputs concatenated along the leading axis as
+    numpy. The tail batch is padded
+    by wrapping to row 0 and the padding is sliced off, so every call sees
+    ``batch_size`` rows (``batch_size / ranks`` under a mesh). Runs under
     ``torch.no_grad()``: a batch function that needs gradients enables
     them itself (the GraNd scorer)."""
 
-    check_no_mesh(mesh)
-    device = resolve_device(device)
+    rows = batch_sharding(mesh)
+    device = mesh.device if mesh is not None else resolve_device(device)
     n = len(next(iter(dataset.values())))
-    npad = ((n + batch_size - 1) // batch_size) * batch_size
+    npad = _pad_to(n, batch_size, mesh)
     idx = np.arange(npad) % n
-    chunks = []
+    mine = rows(batch_size) if rows is not None else slice(None)
+    chunks, bufs = [], None
     with torch.no_grad():
         for start in range(0, npad, batch_size):
-            rows = idx[start:start + batch_size]
-            batch = {k: torch.from_numpy(np.ascontiguousarray(dataset[k][rows])).to(device)
+            sel = idx[start:start + batch_size][mine]
+            batch = {k: torch.from_numpy(np.ascontiguousarray(dataset[k][sel])).to(device)
                      for k in fields if k in dataset}
-            chunks.append(_map_out(_to_numpy, batch_fn(*args, batch)))
-    return _map_out(lambda x: x[:n], _concat(chunks))
+            out = batch_fn(*args, batch)
+            if mesh is None:
+                chunks.append(_map_out(_to_numpy, out))
+                continue
+            if bufs is None:
+                bufs = _map_out(lambda t: t.new_zeros((npad,) + tuple(t.shape[1:])), out)
+            at = slice(start + mine.start, start + mine.stop)
+            _zip_out(lambda buf, t: buf[at].copy_(t), bufs, out)
+        if mesh is None:
+            return _map_out(lambda x: x[:n], _concat(chunks))
+        from repro_torch.launch.distributed import collective
+
+        return _map_out(lambda buf: _to_numpy(collective("all-reduce", buf, mesh))[:n], bufs)
+
+
+def _zip_out(fn, bufs, out):
+    """``fn(buf, leaf)`` over the leaves of two outputs of one structure."""
+
+    if bufs is None:
+        return
+    if isinstance(bufs, torch.Tensor):
+        fn(bufs, out)
+    elif isinstance(bufs, dict):
+        for k in bufs:
+            _zip_out(fn, bufs[k], out[k])
+    elif isinstance(bufs, (tuple, list)):
+        for b, o in zip(bufs, out):
+            _zip_out(fn, b, o)
+    else:
+        for f in dataclasses.fields(bufs):
+            _zip_out(fn, getattr(bufs, f.name), getattr(out, f.name))
 
 
 def score_dataset(per_example_fn: Callable[[Tree, Dict[str, torch.Tensor]], Any], theta: Tree,
                   dataset: Dict[str, np.ndarray], *, fields: Tuple[str, ...] = ("tokens", "y"),
                   batch_size: int = 128, mesh=None, device="cuda"):
-    """A ``PerExample`` adapter over the full dataset: the PerExample with
-    stacked (N, ...) numpy fields."""
+    """A ``PerExample`` adapter over the full dataset (sharded under a
+    mesh): the PerExample with stacked (N, ...) numpy fields."""
 
     return map_batches(per_example_fn, dataset, args=(theta,), fields=fields,
                        batch_size=batch_size, mesh=mesh, device=device)

@@ -13,9 +13,11 @@ data optimization as one object.
 Swapping ``scorer="meta"`` for ``"el2n"`` or any registered name is the one
 argument that changes: everything downstream reads the score array. It
 runs on the model's device, or on ``device`` (``"cuda"`` unless the caller
-passes ``device="cpu"``) for a bare ``per_example_fn``. ``mesh`` waits for
-the distributed schedule (ROADMAP queue 1 item 3) and ``obs`` for the port
-of ``obs/`` (item 6): each must be None.
+passes ``device="cpu"``) for a bare ``per_example_fn``. A ``mesh``
+(``repro_torch.launch.mesh``) shards every full-dataset pass over its data
+axes and the meta scorer's meta-training with them (every rank builds the
+same optimizer and gets the same scores); ``obs`` waits for the port of
+``obs/`` (ROADMAP queue 1 item 6) and must be None.
 """
 
 from __future__ import annotations
@@ -110,7 +112,7 @@ class DataOptimizer:
                     self.model, prune_mod.apply_mask(train, mask), meta=self.ctx.meta,
                     scorer=self.scorer, per_example_fn=self.ctx.per_example_fn,
                     init_fn=self.ctx.init_fn, num_classes=self.ctx.num_classes,
-                    fields=self.ctx.fields, batch_size=self.ctx.batch_size,
+                    fields=self.ctx.fields, mesh=self.ctx.mesh, batch_size=self.ctx.batch_size,
                     seed=self.ctx.seed + r, theta=self.ctx.theta, device=self.ctx.device)
                 scores = sub_opt.fit_scores()
             # the share of the current survivors to drop so that the kept
@@ -150,7 +152,7 @@ class DataOptimizer:
             raise RuntimeError("evaluate() needs a Model; use prune.accuracy with an explicit "
                                "forward_fn instead")
         return prune_mod.model_accuracy(self.model, theta, test, label_key=label_key,
-                                        batch_size=self.ctx.batch_size)
+                                        batch_size=self.ctx.batch_size, mesh=self.ctx.mesh)
 
     # -- online reweighting ------------------------------------------------
 
@@ -158,13 +160,15 @@ class DataOptimizer:
                             temperature=1.0, seed: Optional[int] = None,
                             mesh=None) -> ReweightedIterator:
         """A score-proportional (base level) batch stream over the train
-        set, on the optimizer's device."""
+        set, on the optimizer's device; sharded over the optimizer's mesh
+        unless ``mesh`` overrides it."""
 
         return ReweightedIterator(
             self.ctx.train, self.ctx.meta_data, self._require_scores(), batch_size=batch_size,
             meta_batch_size=meta_batch_size, unroll=unroll,
             seed=self.ctx.seed if seed is None else seed, fields=self.ctx.fields,
-            temperature=temperature, mesh=mesh, device=self.ctx.device)
+            temperature=temperature, mesh=self.ctx.mesh if mesh is None else mesh,
+            device=self.ctx.device)
 
     # -- persistence -------------------------------------------------------
 

@@ -9,7 +9,12 @@ and one score array both give the same indices. The sharpness follows a
 temperature schedule T(step): T -> inf is uniform, T -> 0 concentrates on
 the top scores; ``temperature=(T0, T1, steps)`` anneals linearly, a
 callable is taken as it is. The meta split stays uniformly sampled.
-A ``mesh`` waits for the distributed schedule (ROADMAP queue 1 item 3).
+
+With a ``mesh`` every rank draws the same global batch from the same
+generator and keeps its rows of it (axis 1 of the base batches, axis 0 of
+the meta batch), as the reference's NamedSharding places them: the
+batches come as ``launch.mesh.LocalBatch``, on the mesh's device, which
+the distributed steps take without slicing again.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import Callable, Dict, Tuple, Union
 import numpy as np
 
 from repro_torch.data import BatchIterator
-from repro_torch.dataopt.distributed import check_no_mesh
+from repro_torch.dataopt.distributed import batch_sharding
 
 TemperatureLike = Union[float, Tuple[float, float, int], Callable[[int], float]]
 
@@ -57,7 +62,9 @@ class ReweightedIterator(BatchIterator):
     def __init__(self, base_data: Dict[str, np.ndarray], meta_data: Dict[str, np.ndarray],
                  scores: np.ndarray, *, temperature: TemperatureLike = 1.0, mesh=None,
                  **kwargs):
-        check_no_mesh(mesh)
+        self.rows = batch_sharding(mesh)
+        if mesh is not None:
+            kwargs["device"] = mesh.device
         super().__init__(base_data, meta_data, **kwargs)
         self.temperature_fn = _temperature_fn(temperature)
         self.step = 0
@@ -70,6 +77,14 @@ class ReweightedIterator(BatchIterator):
         if scores.shape != (self.n,):
             raise ValueError(f"scores shape {scores.shape} != ({self.n},)")
         self.scores = scores.astype(np.float32)
+
+    def _batches(self, idx: np.ndarray, midx: np.ndarray):
+        if self.rows is None:
+            return super()._batches(idx, midx)
+        from repro_torch.launch.mesh import LocalBatch
+
+        base, meta = super()._batches(idx[:, self.rows(self.bs)], midx[self.rows(self.mbs)])
+        return LocalBatch(base), LocalBatch(meta)
 
     def _base_idx(self) -> np.ndarray:
         p = sampling_probs(self.scores, self.temperature_fn(self.step))

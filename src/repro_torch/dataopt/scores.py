@@ -36,7 +36,10 @@ the two packages start from different weights for one seed. Every index
 draw is numpy's and equal in both.
 
 ``ctx.obs`` (the observability pipeline) waits for ROADMAP queue 1 item
-6 and must be None; ``ctx.mesh`` waits for item 3.
+6 and must be None. ``ctx.mesh`` (``repro_torch.launch.mesh``) shards
+every full-dataset pass over its data axes and is forwarded to the meta
+scorer's ``MetaLearner``, whose "auto" schedule is then the single-sync
+one; every rank calls the scorer and gets the same scores.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from repro_torch.core import problems
 from repro_torch.core.meta_modules import apply_weight_net, weight_features
 from repro_torch.core.sama import value_and_grad
 from repro_torch.data import BatchIterator
-from repro_torch.dataopt.distributed import check_no_mesh, map_batches, score_dataset
+from repro_torch.dataopt.distributed import batch_sharding, map_batches, score_dataset
 from repro_torch.device import resolve_device
 
 Tree = Any
@@ -138,9 +141,9 @@ class ScoreContext:
     device: Any = "cuda"
 
     def __post_init__(self):
-        check_no_mesh(self.mesh)
+        batch_sharding(self.mesh)  # a non-Mesh raises
         check_no_obs(self.obs)
-        self.device = resolve_device(self.device)
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(self.device)
 
     @property
     def n(self) -> int:
@@ -154,7 +157,7 @@ class ScoreContext:
         """PerExample over the full train set, numpy fields."""
 
         return score_dataset(self.per_example_fn, theta, self.train, fields=self.fields,
-                             batch_size=self.batch_size, device=self.device)
+                             batch_size=self.batch_size, mesh=self.mesh, device=self.device)
 
 
 class ScoreProvider:
@@ -311,7 +314,7 @@ def _make_grand(train_steps: int = 20, keep_hard: bool = False, lr: float = 1e-3
             return torch.stack(norms)
 
         norm = map_batches(batch_fn, ctx.train, fields=ctx.fields, batch_size=grad_batch,
-                           device=ctx.device)
+                           mesh=ctx.mesh, device=ctx.device)
         return _oriented(norm, keep_hard)
 
     return grand
@@ -369,14 +372,16 @@ def fit_meta(ctx: ScoreContext, *, method: Any = "sama", steps: int = 80, unroll
              reweight: bool = True, correct: bool = False, use_uncertainty: bool = False,
              base_lr: float = 1e-3, meta_lr: float = 1e-3, batch: int = 32,
              meta_batch: int = 32, log_every: int = 0, ema_decay: float = 0.0,
-             score_every: int = 10, scale: Optional[Any] = None,
+             score_every: int = 10, schedule: str = "auto", scale: Optional[Any] = None,
              learner_kwargs: Optional[Dict[str, Any]] = None,
              ) -> Tuple[MetaLearner, Optional[EMATracker], Optional[EMATracker]]:
     """Meta-train MetaWeightNet (and optionally the label corrector) on
     ``ctx.train`` against ``ctx.meta_data`` through any registered
     hypergradient method. ``scale`` (a ``repro_torch.scale.ScaleConfig``)
     applies a precision policy and microbatch accumulation to the
-    meta-train.
+    meta-train. A ``ctx.mesh`` is forwarded to the MetaLearner with
+    ``schedule`` (``learner_kwargs`` overrides it): every rank draws the
+    same global batches and the step takes its rows.
 
     With ``ema_decay > 0`` the full train set is rescored every
     ``score_every`` meta steps and two EMAs advance: MetaWeightNet's
@@ -389,11 +394,12 @@ def fit_meta(ctx: ScoreContext, *, method: Any = "sama", steps: int = 80, unroll
     lam = problems.init_data_optimization_lam(ctx.seed + 10, reweight=reweight, correct=correct,
                                               use_uncertainty=use_uncertainty,
                                               num_classes=ctx.num_classes, device=ctx.device)
-    kwargs = dict(learner_kwargs or {})
+    kwargs = {"mesh": ctx.mesh, **(learner_kwargs or {})}
     if scale is not None:
         kwargs.setdefault("scale", scale)
     learner = MetaLearner(spec, base_opt="adam", base_lr=base_lr, meta_opt="adam",
-                          meta_lr=meta_lr, method=method, unroll_steps=unroll, **kwargs)
+                          meta_lr=meta_lr, method=method, unroll_steps=unroll,
+                          schedule=schedule, **kwargs)
     theta0 = ctx.theta if ctx.theta is not None else ctx.init_fn(ctx.seed)
     learner.init(theta0, lam)
     it = BatchIterator(ctx.train, ctx.meta_data, batch_size=batch, meta_batch_size=meta_batch,
@@ -401,7 +407,8 @@ def fit_meta(ctx: ScoreContext, *, method: Any = "sama", steps: int = 80, unroll
 
     def fit_chunk(n_steps):
         for row in learner.fit(it, n_steps, log_every=log_every):
-            print({k: round(v, 4) for k, v in row.items()})
+            if ctx.mesh is None or ctx.mesh.rank == 0:
+                print({k: round(v, 4) for k, v in row.items()})
 
     if ema_decay <= 0.0:
         fit_chunk(steps)

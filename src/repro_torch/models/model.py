@@ -27,12 +27,27 @@ Tree = Any
 
 
 def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                        use_kernel: bool = False) -> torch.Tensor:
+                        use_kernel: bool = False, sharded: bool = False) -> torch.Tensor:
     """logits (B, S, V) f32, targets (B, S) int: per-token CE (B, S). At
     V >= ``CE_VOCAB_THRESHOLD``, or for any V with ``use_kernel=True``, it
     routes through ``weighted_ce`` (f32 result); below, a log-softmax in
-    the logits' dtype. (The JAX package's vocab-sharded form comes with the
-    distribution slice.)"""
+    the logits' dtype.
+
+    ``sharded=True`` is the JAX package's one-hot-reduction form (plain
+    ops, no kernel there either): the lse from a max and a sum over V and
+    the target logit from a compare-select sum, reductions that a
+    vocab-sharded V axis turns into (token,)-sized all-reduces where a
+    gather would collect the whole logits tensor. The port shards no V
+    axis yet (ROADMAP queue 1 item 3); ``cfg.sharded_ce`` selects the form
+    all the same."""
+    if sharded:
+        m = torch.amax(logits, dim=-1, keepdim=True)
+        lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+        ids = torch.arange(logits.shape[-1], device=logits.device)
+        hit = ids == targets[..., None].long()
+        tgt = torch.sum(torch.where(hit, logits, torch.zeros((), dtype=logits.dtype,
+                                                             device=logits.device)), dim=-1)
+        return lse - tgt
     if use_kernel or logits.shape[-1] >= dispatch.CE_VOCAB_THRESHOLD:
         return vocab_cross_entropy(logits, targets)
     logp = F.log_softmax(logits, dim=-1)
@@ -73,13 +88,15 @@ class Model:
     def lm_loss(self, params, batch) -> torch.Tensor:
         """Next-token LM loss (scalar) + aux. batch: tokens (B, S)."""
         logits, aux = self.forward(params, batch)
-        ce = token_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:], self.use_ce_kernel)
+        ce = token_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:], self.use_ce_kernel,
+                                 self.cfg.sharded_ce)
         return torch.mean(ce) + aux
 
     def per_example(self, params, batch) -> PerExample:
         """Per-sequence loss for data-optimization meta learning."""
         logits, _ = self.forward(params, batch)
-        ce = token_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:], self.use_ce_kernel)
+        ce = token_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:], self.use_ce_kernel,
+                                 self.cfg.sharded_ce)
         loss = torch.mean(ce, dim=-1)  # (B,)
         logp = F.log_softmax(logits[:, -1].float(), dim=-1)
         entropy = -torch.sum(torch.exp(logp) * logp, dim=-1)

@@ -8,8 +8,10 @@ the JAX package) and the baseline regression gate.
                             samples_per_step=batch * unroll)
     rec.as_dict()  # -> PerfRecord JSON (timing + memory)
 
-No ``attribution`` (it parses XLA HLO) and no collective census (one
-device) yet.
+The collective census of one executed step (``perf.collectives``: the
+calls ``launch.distributed.collective`` counted) takes the place of the
+reference's HLO census; ``attribution`` (it parses XLA HLO) has no
+counterpart yet.
 """
 
 from __future__ import annotations

@@ -111,7 +111,10 @@ def accumulated_value_and_grad(loss_fn: Callable, theta: Tree, lam: Tree, batch:
     loss, grads = loss_sum / m, [g.div_(m) for g in grads]
     if loss_scale is not None:
         loss, grads = loss / loss_scale, [g.div_(loss_scale) for g in grads]
-    return loss, tu.tree_unflatten(paths, grads)
+    from repro_torch.core import sync  # core imports this package
+
+    # the global-batch schedule's reduce, once on the sum of the M passes
+    return loss, sync.mean(tu.tree_unflatten(paths, grads))
 
 
 def microbatch_value_and_grad(loss_fn: Callable, theta: Tree, lam: Tree, batch: Tree, m: int,

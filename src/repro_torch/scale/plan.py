@@ -83,15 +83,17 @@ def candidate_microbatches(base_batches, meta_batch, max_microbatch: Optional[in
                            *, shard_divisor: int = 1) -> Tuple[int, ...]:
     """Ascending Ms that divide both the per-step base batch and the meta
     batch (``split_batch`` needs exact divisibility). ``shard_divisor`` is
-    the data-parallel extent of a distributed schedule; the port runs on
-    one device, and any other value than 1 waits for the distributed
-    schedule (ROADMAP queue 1 item 3)."""
+    the data-parallel extent of the single-sync schedule, whose
+    ``split_batch`` runs on each rank's rows: the candidates divide the
+    shard (global / ranks), not the global batch. 1 for the global-batch
+    step and one device."""
 
-    if shard_divisor != 1:
-        raise NotImplementedError(
-            f"shard_divisor={shard_divisor}: candidates per data-parallel shard come with "
-            "the distributed schedule (ROADMAP queue 1 item 3); the port plans for one device")
     base_b, meta_b = _batch_dims(base_batches, meta_batch)
+    if shard_divisor < 1 or base_b % shard_divisor or meta_b % shard_divisor:
+        raise ValueError(f"batches (base {base_b}, meta {meta_b}) do not shard evenly over "
+                         f"{shard_divisor} data-parallel devices")
+    base_b //= shard_divisor
+    meta_b //= shard_divisor
     ms = [m for m in range(1, min(base_b, meta_b) + 1)
           if base_b % m == 0 and meta_b % m == 0
           and (max_microbatch is None or m <= max_microbatch)]
@@ -106,16 +108,29 @@ def _on_card(state) -> bool:
     return bool(leaves) and leaves[0].device.type == "cuda"
 
 
-def measure_peak(spec, base_opt, meta_opt, engine_cfg, state, base_batches, meta_batch
-                 ) -> Tuple[Optional[int], str]:
+def measure_peak(spec, base_opt, meta_opt, engine_cfg, state, base_batches, meta_batch, *,
+                 mesh=None, schedule: str = "pjit") -> Tuple[Optional[int], str]:
     """One candidate's ``(peak_bytes, source)``. On the card: a warm-up
     call and a measured call of the step from ``state`` (not advanced),
     ``peak_bytes`` None when the candidate runs out of memory. On the CPU:
-    the aval estimate (module docstring)."""
+    the aval estimate (module docstring). With a ``mesh`` the step is the
+    ``schedule``'s (``launch.distributed``) and every rank measures its
+    own peak: each rank must call the planner."""
 
     from repro_torch.core.engine import make_meta_step  # engine imports this package
 
-    step = make_meta_step(spec, base_opt, meta_opt, engine_cfg)
+    if schedule == "single_sync":
+        from repro_torch.launch.distributed import make_manual_step  # launch sits above
+
+        if mesh is None:
+            raise ValueError("schedule='single_sync' needs a mesh")
+        step = make_manual_step(spec, base_opt, meta_opt, engine_cfg, mesh)
+    elif mesh is not None:
+        from repro_torch.launch.distributed import make_pjit_step
+
+        step = make_pjit_step(spec, base_opt, meta_opt, engine_cfg, mesh)
+    else:
+        step = make_meta_step(spec, base_opt, meta_opt, engine_cfg)
     if not _on_card(state):
         out = step(state, base_batches, meta_batch)
         act = int(tree_bytes((base_batches, meta_batch)) * AVAL_ACTIVATION_MULTIPLIER
@@ -140,20 +155,22 @@ def _fits(peak: Optional[int], budget: int) -> bool:
 
 
 def plan_microbatch(spec, base_opt, meta_opt, engine_cfg, state, base_batches, meta_batch, *,
-                    hbm_budget: int, mesh=None, max_microbatch: Optional[int] = None) -> ExecPlan:
+                    hbm_budget: int, mesh=None, schedule: str = "pjit",
+                    max_microbatch: Optional[int] = None) -> ExecPlan:
     """Bisect the smallest microbatch count M whose step peak fits
-    ``hbm_budget`` bytes. Returns an ``ExecPlan`` whose ``scale`` is
-    ``engine_cfg.scale`` with the chosen M: feed it back as
+    ``hbm_budget`` bytes per device. Returns an ``ExecPlan`` whose
+    ``scale`` is ``engine_cfg.scale`` with the chosen M: feed it back as
     ``dataclasses.replace(engine_cfg, scale=plan.scale)``. When even the
     largest candidate does not fit, ``fits`` is False and the plan carries
-    that largest M."""
+    that largest M. On a ``mesh`` the candidates divide each rank's rows
+    (``candidate_microbatches``' ``shard_divisor``) under either
+    ``schedule``: both run ``split_batch`` on the rank's rows, where JAX's
+    partitioner reshards the global-batch step's microbatches."""
 
-    if mesh is not None:
-        raise NotImplementedError("plan_microbatch(mesh=...): meshes come with the distributed "
-                                  "schedule (ROADMAP queue 1 item 3)")
     if hbm_budget <= 0:
         raise ValueError(f"hbm_budget must be > 0 bytes, got {hbm_budget}")
-    cands = candidate_microbatches(base_batches, meta_batch, max_microbatch)
+    dp = mesh.size if mesh is not None else 1
+    cands = candidate_microbatches(base_batches, meta_batch, max_microbatch, shard_divisor=dp)
     tried = {}
 
     def peak_of(m: int):
@@ -161,7 +178,7 @@ def plan_microbatch(spec, base_opt, meta_opt, engine_cfg, state, base_batches, m
             cfg_m = dataclasses.replace(
                 engine_cfg, scale=dataclasses.replace(engine_cfg.scale, microbatch=m))
             tried[m] = measure_peak(spec, base_opt, meta_opt, cfg_m, state, base_batches,
-                                    meta_batch)
+                                    meta_batch, mesh=mesh, schedule=schedule)
         return tried[m][0]
 
     # bisect the ascending candidates: the peak is non-increasing in M, so

@@ -359,17 +359,20 @@ def test_map_batches_pads_by_wrapping_and_trims_as_jax():
 
 
 def test_mesh_and_obs_raise_naming_their_queue_items(dataset):
+    """A mesh is taken now (tests/test_torch_dataopt_distributed.py); what
+    is not a ``launch.mesh.Mesh`` is refused. ``obs`` still waits for
+    ROADMAP queue 1 item 6."""
     kw = dict(train=dataset, per_example_fn=TPER_EX, init_fn=_tinit, fields=("x", "y"),
               scorer="random", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         dataopt.DataOptimizer(mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         dataopt.DataOptimizer(obs=object(), **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         dataopt.map_batches(lambda b: b, dataset, fields=("x",), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         dataopt.batch_sharding(object())
     assert dataopt.batch_sharding(None) is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         dataopt.ReweightedIterator(dataset, dataset, np.ones(N), batch_size=2,
                                    meta_batch_size=2, unroll=1, mesh=object(), device="cpu")

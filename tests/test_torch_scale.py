@@ -615,8 +615,14 @@ def test_candidate_microbatches_match_jax(batch, meta, cap):
     *_, tbb, tmb = _planner_args("torch", batch, meta)
     assert scale.candidate_microbatches(tbb, tmb, cap) == jscale.candidate_microbatches(
         jbb, jmb, cap)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        scale.candidate_microbatches(tbb, tmb, shard_divisor=2)
+    # per data-parallel shard: the candidates of the JAX package, or its refusal
+    try:
+        want = jscale.candidate_microbatches(jbb, jmb, cap, shard_divisor=2)
+    except ValueError:
+        with pytest.raises(ValueError, match="do not shard evenly"):
+            scale.candidate_microbatches(tbb, tmb, cap, shard_divisor=2)
+    else:
+        assert scale.candidate_microbatches(tbb, tmb, cap, shard_divisor=2) == want
 
 
 @pytest.mark.parametrize("budget", [1, 450, 700, 1000, 10 ** 6])
