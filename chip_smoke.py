@@ -18,28 +18,33 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
 3. decode kernel: ``flash_decode`` against its plain PyTorch version on
    the card at gemma3-1b shapes (B in {1, 4, 8}, KV=1, G=4, Dh=256, T in
    {16, 128, 1024, 2048}, window on and off, softcap 0 and 50, cluster
-   sizes (splits) 1, 3, 7 and the plan's), f32 within 1e-5 and bf16 within
+   sizes (splits) 1, 3, 7 and the plan's), and at qwen2-moe-a2.7b's layer
+   (B 1 and 4, T 1024, KV 16, G 1, Dh 128; splits 1, 4 and the plan's),
+   f32 within 1e-5 and bf16 within
    2e-2 abs, and the 2-byte dtypes within half an ulp (+1e-5) of the plain
    version in f32 on the same inputs; then the kernel, plain and library
    (``scaled_dot_product_attention``) times over one pass of 26 layers at
    the serving shape, and per local and global layer at buckets 256, 512
    and 1024 (bf16) and 1024 (f32), with the 1024 bucket under cluster
-   sizes 4, 8 and 16.
+   sizes 4, 8 and 16, and per qwen2-moe-a2.7b layer at bucket 1024 (bf16).
 4. training kernels: the flash-attention forward and its dq and dk/dv
    backward kernels through autograd, at bert-base's shape, at a
    gemma-like one (G 4, KV 1, Dh 256, window, softcap, causal, ragged S
-   and T), at gemma3-1b's full local and global layers (B 4, S = T 1024)
-   and with whole key and query tiles of padding, f32 (1e-5 forward, 5e-5
+   and T), at gemma3-1b's full local and global layers (B 4, S = T 1024),
+   with whole key and query tiles of padding and at qwen2-moe-a2.7b's layer
+   (B 4, S = T 1024, KV 16, G 1, Dh 128, causal), f32 (1e-5 forward, 5e-5
    + 1e-4 relative gradients) and bf16 (2e-2 + 2e-2 relative), the bf16
    results also within half an ulp (plus the f32 tolerance) of the plain
    version in f32 on the same inputs, and the bf16 gradients of two runs
    bitwise equal; a second derivative through the attention and CE
    kernels raises (first order only), through their plain versions not;
    ``adam_adapt`` at the embedding's 23,440,896 elements, the stacked MLP
-   weights' 28,311,552 and a ragged size (rtol 1e-5, sum of squares 1e-4);
+   weights' 28,311,552, a ragged size and qwen2-moe's expert stack at
+   depth 2, 346,030,080 (rtol 1e-5, sum of squares 1e-4);
    ``weighted_ce`` forward and backward at gemma3-1b's LM loss (the (4,
-   1023, 262144) logits view, R 4,092) and at R 37, V 5,000, f32, bf16
-   and f16 logits (ce and lse within 1e-5 (1 + |ref|); dlogits within
+   1023, 262144) logits view, R 4,092), at R 37, V 5,000 and at the LM
+   losses of qwen2-moe-a2.7b (V 151,936) and minicpm3-4b (V 73,448), f32,
+   bf16 and f16 logits (ce and lse within 1e-5 (1 + |ref|); dlogits within
    1e-6 + 1e-5 |ref| of the plain version in f32, plus half an ulp of the
    dtype for bf16 and f16);
    ``lion_adapt`` and ``adafactor_adapt`` at bert-base's embedding,
@@ -48,11 +53,14 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    S 128, bf16; the CE also with bf16 and f16 logits at the same shape,
    the f16 instantiation beside the bf16; the attention kernels also per
    gemma3-1b global and local
-   layer over one pass of its 26 layers, with SDPA's time under each
+   layer over one pass of its 26 layers and per qwen2-moe-a2.7b layer over
+   its 24, with SDPA's time under each
    backend that takes the layer (the median of five timings, their range
    beside it) and the tiles the bf16 kernels visit; the
-   CE at gemma3-1b's shape in f32; the adaptation products at 23.4 M
-   elements) beside its plain version's, the library call's and the
+   CE at gemma3-1b's, qwen2-moe's and minicpm3's shapes in f32; the
+   adaptation products at 23.4 M
+   elements, ``adam_adapt`` also at the 346 M expert stack) beside its
+   plain version's, the library call's and the
    bound (for attention, from the valid (query, key) pairs).
 5. serve f32: gemma3-1b at full width and depth in f32, random weights
    from a seed, 8 requests of 300-900 prompt tokens through the
@@ -148,6 +156,25 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    (c) ``DataOptimizer(mesh=)`` loss and el2n scores on the two ranks
    within 1e-5 relative of the one-device pass. (d) A model axis above 1
    raises ``NotImplementedError``.
+18. moe: qwen2-moe-a2.7b (60 routed experts top-4 and 4 shared, 14.0 B
+   parameters). (a) Serving in f32 at full width and depth, random weights
+   from a seed, 8 requests of 300-900 tokens, tokens equal to the serial
+   ``greedy_generate``; (b) bf16 serving as phase 6 (qps, TTFT, TPOT, peak
+   memory, ``flash_decode`` launches = 24 x decode steps, a profiled decode
+   step); (c) f32 training at full width and depth 2 (1.45 B parameters:
+   the step's f32 parameter-sized trees at full depth pass 80 GB), batch
+   2, seq 1024, unroll 2: three step pairs as phase 9 (launches held to
+   the code's formula) with the (call, token) rows whose chosen experts
+   differ between the kernel and the plain step counted: with none the
+   pair is held at phase 7's tolerances, with some the losses alone; (d)
+   bf16 training at depth 2, batch 4, seq 1024, meta batch 2, 10 meta
+   steps as phase 10, the profiled step's device time also within the
+   ``apply_moe`` ranges (the MoE layers' forward).
+19. mla: minicpm3-4b (multi-head latent attention, 62 layers, 4.07 B
+   parameters), as phase 18 with training at depth 16 (1.19 B): its
+   decode and training attention are plain ops in both packages, so no
+   ``flash_decode`` or flash attention kernel launches (held at 0); the
+   CE and ``adam_adapt`` launches are held.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. The weights and data are random, from seeds; nothing is downloaded.
@@ -381,6 +408,25 @@ def phase_kernel_check(dev):
             worst_vs_f32 = max(worst_vs_f32, _vs_f32(flash_attn, got, q, k, v, pos, True,
                                                      kw, f"KV={kv} G={g} Dh={dh}"))
         n += 1
+    # qwen2-moe-a2.7b's decode layer (H 16 over KV 16, G 1, Dh 128, no
+    # window or softcap) at its serving shape
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 4):
+            q, k, v = _decode_inputs(rng, b, 1024, dtype, dev, kv=16, g=1, dh=128)
+            pos = torch.from_numpy(_positions(rng, b, 1024).astype(np.int32)).to(dev)[:, None]
+            plain = flash_attn.flash_decode(q, k, v, pos, False, backend="plain")
+            for n_splits in (1, 4, None):
+                got = flash_attn.flash_decode(q, k, v, pos, False, n_splits=n_splits)
+                err = (got.float() - plain.float()).abs().max().item()
+                if not err <= TOL[dtype]:
+                    raise AssertionError(f"flash_decode vs plain: err {err:.3e} at the "
+                                         f"qwen2-moe layer B={b} {dtype} n_splits={n_splits}")
+                worst[dtype] = max(worst[dtype], err)
+                if dtype != torch.float32:
+                    worst_vs_f32 = max(worst_vs_f32, _vs_f32(
+                        flash_attn, got, q, k, v, pos, False, {},
+                        f"qwen2-moe B={b} n_splits={n_splits}"))
+                n += 1
     # the blocks' shares of the visible rows, by the library's own
     # arithmetic, are the ones the CPU tests hold (flash_attn.decode_shares)
     n_shares = 0
@@ -450,6 +496,29 @@ def phase_kernel_time(dev, cfg, slots, t):
     return out
 
 
+def phase_qwen_decode_time(dev, cfg, slots=4, t=1024):
+    """flash_decode per qwen2-moe-a2.7b layer (H 16 over KV 16, G 1, Dh
+    128) at bucket ``t``, bf16, beside the plain version, SDPA and the
+    bound (``decode_time.time_case``); one launch per call."""
+    from repro_torch.kernels import flash_attn
+    from repro_torch.perf import decode_time
+
+    out = decode_time.time_case(flash_attn, cfg, dev, "global", t, torch.bfloat16, slots=slots,
+                                seed=SEED + 6)
+    out["cluster"] = flash_attn.decode_cluster(
+        t, slots * cfg.num_kv_heads,
+        max_cluster=flash_attn.decode_max_cluster(cfg.head_dim, torch.bfloat16))
+    log(f"kernel_time: flash_decode per {cfg.name} layer at B={slots} T={t} bf16: kernel_ms="
+        f"{out['ms']:.5f} (repeat {out['ms_repeat']:.5f}, eager {out['ms_eager']:.5f}) "
+        f"plain_ms={out['plain_ms']:.5f} library_ms={out['library_ms']:.5f} "
+        f"bound_ms={out['bound_ms']:.5f} ({out['bound_by']}) cluster={out['cluster']} "
+        f"launches_per_layer={out['launches_per_layer']}")
+    if round(out["launches_per_layer"]) != 1:
+        raise AssertionError(f"flash_decode: {out['launches_per_layer']} launches per call at "
+                             f"the {cfg.name} layer, not 1")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 5-6: serving
 # ---------------------------------------------------------------------------
@@ -481,12 +550,19 @@ def _serve(model, params, prompts, gen, scfg):
         toks = ex.results[i].tokens
         if len(toks) != gen or not all(0 <= x < model.cfg.vocab_size for x in toks):
             raise AssertionError(f"request {i}: {len(toks)} tokens, expected {gen} in vocab")
-    if launches < 1:
-        raise AssertionError("the serve run launched no flash_decode kernel")
+    if launches != _gqa_layers(model.cfg) * stats.steps:
+        raise AssertionError(f"flash_decode launches {launches} != {_gqa_layers(model.cfg)} "
+                             f"GQA layers x {stats.steps} decode steps")
     return ex, ids, stats, launches, wall
 
 
-def phase_serve_f32(base_cfg, params, dev):
+def _gqa_layers(cfg):
+    """Layers whose decode attention is the flash_decode kernel: every
+    layer but MLA's (plain ops in both packages)."""
+    return 0 if cfg.use_mla else cfg.num_layers
+
+
+def phase_serve_f32(base_cfg, params, dev, tag="serve_f32"):
     from repro_torch import serve
     from repro_torch.models import Model
 
@@ -502,12 +578,14 @@ def phase_serve_f32(base_cfg, params, dev):
         if ex.results[i].tokens != ref:
             raise AssertionError(f"f32 request {i}: continuous {ex.results[i].tokens} "
                                  f"!= serial {ref}")
-    log(f"serve_f32: {len(ids)} requests ok, tokens equal to serial greedy_generate "
+    log(f"{tag}: {len(ids)} requests ok, tokens equal to serial greedy_generate "
         f"for all; decode_steps={stats.steps} flash_decode_launches={launches} "
         f"wall_s={wall:.3f}")
+    return {"requests": len(ids), "decode_steps": stats.steps, "flash_decode_launches": launches,
+            "wall_s": wall}
 
 
-def phase_serve_bf16(cfg, params, dev, out_dir):
+def phase_serve_bf16(cfg, params, dev, out_dir, tag="serve_bf16"):
     from repro_torch import serve
     from repro_torch.models import Model
 
@@ -518,9 +596,6 @@ def phase_serve_bf16(cfg, params, dev, out_dir):
     torch.cuda.reset_peak_memory_stats()
     ex, ids, stats, launches, wall = _serve(model, params, prompts, gen, scfg)
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.num_layers * stats.steps:
-        raise AssertionError(f"flash_decode launches {launches} != {cfg.num_layers} x "
-                             f"{stats.steps} decode steps")
     result = {
         "requests": len(ids), "qps": stats.qps, "wall_s": wall,
         "ttft_p50_ms": stats.ttft.p50_us / 1e3, "ttft_p99_ms": stats.ttft.p99_us / 1e3,
@@ -528,14 +603,16 @@ def phase_serve_bf16(cfg, params, dev, out_dir):
         "decode_steps": stats.steps, "flash_decode_launches": launches,
         "max_memory_allocated": peak,
     }
-    log("serve_bf16: " + json.dumps(result))
-    result["step_profile"] = profile_step(model, params, scfg, prompts[:4], out_dir)
+    log(f"{tag}: " + json.dumps(result))
+    result["step_profile"] = profile_step(model, params, scfg, prompts[:4], out_dir,
+                                          "decode_step" if tag == "serve_bf16" else tag)
     return result, launches
 
 
-def profile_step(model, params, scfg, prompts, out_dir):
+def profile_step(model, params, scfg, prompts, out_dir, name="decode_step"):
     """A torch.profiler trace of one fused decode step with four live lanes
-    (launches here are outside the counted run)."""
+    (launches here are outside the counted run), written to
+    DIR/{name}_trace.json; one flash_decode launch per call, none for MLA."""
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -561,7 +638,7 @@ def profile_step(model, params, scfg, prompts, out_dir):
         wall_ms = (time.perf_counter() - t0) * 1e3
     calls = dispatch.launches("flash_decode") - calls
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "decode_step_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
     # device kernels and copies: aten:: rows repeat their kernels' time, and
     # the runtime's own rows (cudaLaunchKernel, Activity Buffer Request) are
     # host calls, not kernels (1,961 cudaLaunchKernel counts in one step
@@ -571,11 +648,13 @@ def profile_step(model, params, scfg, prompts, out_dir):
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0 and not e.key.startswith(("aten::", "cuda", "Activity Buffer")):
+        # a model range (SPANS) repeats its kernels' time, as aten:: rows do
+        if dev_us > 0 and not e.key.startswith(("aten::", "cuda", "Activity Buffer")) \
+                and e.key not in SPANS:
             rows.append((e.key, dev_us, e.count))
     rows.sort(key=lambda r: -r[1])
     total_dev_ms = sum(r[1] for r in rows) / 1e3
-    with open(os.path.join(out_dir, "decode_step_kernels.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_kernels.txt"), "w") as f:
         for key, us, count in rows:
             f.write(f"{us:12.1f} us  {count:5d}x  {key}\n")
     top = [{"name": k[:80], "us": round(us, 1), "count": c} for k, us, c in rows[:12]]
@@ -590,10 +669,13 @@ def profile_step(model, params, scfg, prompts, out_dir):
                 "flash_decode_calls": calls,
                 "flash_decode_launches": sum(c for _, c in decode_rows),
                 "flash_decode_share_of_device": decode_ms / total_dev_ms, "top": top}
-    log("step_profile: " + json.dumps(prof_out))
-    if calls == 0 or round(prof_out["flash_decode_launches"] / calls) != 1:
+    log(("step_profile: " if name == "decode_step" else f"{name}_step_profile: ")
+        + json.dumps(prof_out))
+    if calls != _gqa_layers(model.cfg) or (
+            calls and round(prof_out["flash_decode_launches"] / calls) != 1):
         raise AssertionError(f"flash_decode: {prof_out['flash_decode_launches']} kernel "
-                             f"launches in the profiled step for {calls} calls, not one each")
+                             f"launches in the profiled step for {calls} calls, not one each "
+                             f"of {_gqa_layers(model.cfg)}")
     return prof_out
 
 
@@ -603,14 +685,16 @@ def profile_step(model, params, scfg, prompts, out_dir):
 
 #: (name, B, S, T, KV, G, Dh, causal, window, softcap, padded): bert-base's
 #: layer, a gemma-like training shape with ragged S and T, gemma3-1b's full
-#: local and global layers, and padding (keys 64-191 and lane 1's queries
-#: 32-95 at position -1: whole key and query tiles of both kernels)
+#: local and global layers, padding (keys 64-191 and lane 1's queries 32-95
+#: at position -1: whole key and query tiles of both kernels) and
+#: qwen2-moe-a2.7b's layer (G 1, Dh 128)
 TRAIN_SHAPES = [
     ("bert-base", 48, 128, 128, 12, 1, 64, False, 0, 0.0, False),
     ("gemma-like", 2, 300, 333, 1, 4, 256, True, 128, 50.0, False),
     ("gemma3-1b local", 4, 1024, 1024, 1, 4, 256, True, 512, 0.0, False),
     ("gemma3-1b global", 4, 1024, 1024, 1, 4, 256, True, 0, 0.0, False),
     ("padded", 2, 170, 250, 1, 4, 128, True, 0, 0.0, True),
+    ("qwen2-moe-a2.7b", 4, 1024, 1024, 16, 1, 128, True, 0, 0.0, False),
 ]
 #: the plain forward drops padded keys on its chunked path only (make_mask
 #: keeps them, as the JAX reference's does): the padded shape runs it chunked
@@ -618,7 +702,9 @@ PADDED_CHUNK = 64
 #: (atol, rtol) per dtype: forward, gradients (tests/test_flash_attention.py)
 ATTN_TOL = {torch.float32: ((1e-5, 0.0), (5e-5, 1e-4)),
             torch.bfloat16: ((2e-2, 2e-2), (2e-2, 2e-2))}
-ADAM_SIZES = (23_440_896, 28_311_552, 1_000_003)  # embed, stacked MLP leaf, ragged
+#: bert-base's embedding, its stacked MLP leaf, a ragged size, and
+#: qwen2-moe-a2.7b's (2, 60, 2048, 1408) expert stack at phase 18's depth
+ADAM_SIZES = (23_440_896, 28_311_552, 1_000_003, 346_030_080)
 
 
 def _randn(rng, shape, dtype, dev):
@@ -718,11 +804,17 @@ def phase_train_kernel_check(dev):
         f"{len(TRAIN_SHAPES)} shapes")
 
     rng = np.random.default_rng(SEED + 17)  # its own inputs, whatever the shapes above draw
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)  # the expert stack's, on the card
     adam_worst = 0.0
     for n in ADAM_SIZES:
+        def draw():
+            if n < ADAM_SIZES[3]:
+                return _randn(rng, (n,), torch.float32, dev)
+            return _dev_randn(gen, n, dev)
+
         for t in (1, 7):
-            g, gm, m = (_randn(rng, (n,), torch.float32, dev) * 1e-2 for _ in range(3))
-            v = _randn(rng, (n,), torch.float32, dev).square() * 1e-4
+            g, gm, m = (draw() * 1e-2 for _ in range(3))
+            v = draw().square() * 1e-4
             step = torch.tensor(t, dtype=torch.int32, device=dev)
             lr = torch.tensor(1e-3, device=dev)
             out, ss = adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr)
@@ -980,21 +1072,31 @@ def phase_train_kernel_time(dev, cfg, batch, seq):
     _log_tiles(layers, f"over {n} bert-base layers")
     del layers, lib, runs
 
-    n_el = ADAM_SIZES[0]
-    g, m, v, gm = (_randn(rng, (n_el,), torch.float32, dev) for _ in range(4))
-    v = v.abs()
     step = torch.tensor(3, dtype=torch.int32, device=dev)
     lr = torch.tensor(1e-3, device=dev)
-    adam_ms = graph_ms(lambda: adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr))
-    adam_plain = graph_ms(lambda: adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr,
-                                                        backend="plain"))
-    adam_ms_2 = graph_ms(lambda: adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr))
-    bound_ms, bound_by = _bound(20 * n_el, 20 * n_el, torch.float32)
-    out["adam_adapt"] = {"ms": adam_ms, "ms_repeat": adam_ms_2, "plain_ms": adam_plain,
-                         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "shape": {"N": n_el, "dtype": "float32"}}
-    log(f"kernel_time: adam_adapt at N={n_el}: ms={adam_ms:.4f} (repeat {adam_ms_2:.4f}) "
-        f"plain_ms={adam_plain:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    for n_el in (ADAM_SIZES[0], ADAM_SIZES[3]):
+        if n_el == ADAM_SIZES[0]:
+            g, m, v, gm = (_randn(rng, (n_el,), torch.float32, dev) for _ in range(4))
+        else:
+            g, m, v, gm = (_dev_randn(gen, n_el, dev) for _ in range(4))
+        v = v.abs()
+        adam_ms = graph_ms(lambda: adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr))
+        adam_plain = graph_ms(lambda: adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr,
+                                                            backend="plain"))
+        adam_ms_2 = graph_ms(lambda: adam_adapt.adam_adapt(g, m, v, gm, t=step, lr=lr))
+        bound_ms, bound_by = _bound(20 * n_el, 20 * n_el, torch.float32)
+        e = {"ms": adam_ms, "ms_repeat": adam_ms_2, "plain_ms": adam_plain,
+             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+             "shape": {"N": n_el, "dtype": "float32"}}
+        if n_el == ADAM_SIZES[0]:
+            out["adam_adapt"] = e
+        else:  # the expert stack, beside the embedding's entry
+            out["adam_adapt"]["qwen2-moe-a2.7b expert stack"] = e
+        log(f"kernel_time: adam_adapt at N={n_el}: ms={adam_ms:.4f} (repeat {adam_ms_2:.4f}) "
+            f"plain_ms={adam_plain:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+        del g, m, v, gm
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1051,33 +1153,36 @@ def _sdpa_times(dev, layers, g):
                                         for fn in (run_fwd, run_bwd))
             del outs
     if not times:
-        raise AssertionError("no scaled_dot_product_attention backend took the gemma3-1b layer")
+        raise AssertionError("no scaled_dot_product_attention backend took the layer")
     return times
 
 
-def phase_gemma_attn_time(dev, cfg, batch=4, seq=1024):
-    """The forward, dq and dk/dv kernels over one pass of gemma3-1b's
-    layers in its 5:1 local:global pattern (B 4, S = T 1024, H 4 over KV 1,
-    Dh 256, bf16, causal, the 512-token window on local layers), each layer
-    its own inputs (26 x 5 MB beside the 50 MB L2), timed per call on the
-    global and on the local layers (CUDA-graph replay) beside the plain
-    versions and scaled_dot_product_attention under each backend that
-    takes the layer; the bounds from the valid (query, key) pairs of these
-    positions; the tiles the bf16 kernels visit."""
+def phase_layer_attn_time(dev, cfg, batch=4, seq=1024):
+    """The forward, dq and dk/dv kernels over one pass of the model's
+    layers in its pattern (gemma3-1b: 5:1 local:global, H 4 over KV 1,
+    Dh 256, the 512-token window on local layers; qwen2-moe-a2.7b: 24
+    global layers, H 16 over KV 16, Dh 128), B 4, S = T 1024, bf16,
+    causal, each layer its own inputs (beside the 50 MB L2), timed per call
+    on each kind of layer (CUDA-graph replay) beside the plain versions and
+    scaled_dot_product_attention under each backend that takes the layer;
+    the bounds from the valid (query, key) pairs of these positions; the
+    tiles the bf16 kernels visit. Returns {kernel: {cfg.name: {kind: ...,
+    "ms_per_layer", "bound_ms_per_layer"}}}."""
     from repro_torch.kernels import flash_attn
 
     rng = np.random.default_rng(SEED + 16)
     b, s = batch, seq
     kv, g, dh = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
     kinds = cfg.layer_kinds
+    present = [kind for kind in ("global", "local") if kind in kinds]
     windows = [cfg.sliding_window if kind == "local" else 0 for kind in kinds]
     layers = _attn_layers(rng, dev, b, s, kv, g, dh, windows,
                           softcap=float(cfg.attn_logit_softcap or 0.0))
     shape = {"B": b, "S": s, "T": s, "H": kv * g, "KV": kv, "Dh": dh, "dtype": "bfloat16",
              "causal": True, "window": cfg.sliding_window,
-             "layers": {kind: kinds.count(kind) for kind in ("global", "local")}}
+             "layers": {kind: kinds.count(kind) for kind in present}}
     per_kind = {}
-    for kind in ("global", "local"):
+    for kind in present:
         sel = [x for x, k in zip(layers, kinds) if k == kind]
         n = len(sel)
         runs = _attn_runs(dev, sel)
@@ -1098,29 +1203,32 @@ def phase_gemma_attn_time(dev, cfg, batch=4, seq=1024):
             e["library_call"] = ("scaled_dot_product_attention, K/V expanded, eager"
                                  + ("" if name == flash_attn.FWD else ", autograd backward"))
             lib_range = e.get("library_ms_range")
-            log(f"kernel_time: {name} per gemma3-1b {kind} layer (B={b} S={s} bf16): "
+            log(f"kernel_time: {name} per {cfg.name} {kind} layer (B={b} S={s} bf16): "
                 f"ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} library_ms={e['library_ms']:.4f}"
                 + (f" ({lib_range[0]:.4f}-{lib_range[1]:.4f})" if lib_range else "")
                 + f" ({e['library_backend']}) bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
-        _log_tiles(sel, f"over {len(sel)} gemma3-1b {kind} layers")
+        _log_tiles(sel, f"over {len(sel)} {cfg.name} {kind} layers")
         per_kind[kind] = entries
         del runs
     del layers
     torch.cuda.empty_cache()
     out = {}
     for name in (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV):
-        glob, loc = per_kind["global"][name], per_kind["local"][name]
-        n_g, n_l = shape["layers"]["global"], shape["layers"]["local"]
-        out[name] = {"gemma3-1b": {
-            "global": glob, "local": loc,
-            "ms_per_layer": (n_g * glob["ms"] + n_l * loc["ms"]) / (n_g + n_l),
-            "bound_ms_per_layer": (n_g * glob["bound_ms"] + n_l * loc["bound_ms"]) / (n_g + n_l)}}
+        counts = shape["layers"]
+        per = {kind: per_kind[kind][name] for kind in present}
+        out[name] = {cfg.name: {
+            **per,
+            "ms_per_layer": sum(counts[k] * per[k]["ms"] for k in present) / len(kinds),
+            "bound_ms_per_layer": sum(counts[k] * per[k]["bound_ms"] for k in present)
+            / len(kinds)}}
     return out
 
 
 #: (name, B, S, V, sliced): gemma3-1b's LM loss, logits (4, 1024, V) read
-#: through the logits[:, :-1] view (R = 4,092), and a ragged shape
-CE_SHAPES = [("gemma3-1b", 4, 1024, 262_144, True), ("ragged", 1, 37, 5_000, False)]
+#: through the logits[:, :-1] view (R = 4,092), a ragged shape, and the LM
+#: losses of qwen2-moe-a2.7b and minicpm3-4b (V not a power of two)
+CE_SHAPES = [("gemma3-1b", 4, 1024, 262_144, True), ("ragged", 1, 37, 5_000, False),
+             ("qwen2-moe-a2.7b", 4, 1024, 151_936, True), ("minicpm3-4b", 4, 1024, 73_448, True)]
 #: bert-base's embedding, gemma3-1b's embedding, a ragged size
 ADAPT_SIZES = (23_440_896, 301_989_888, 1_000_003)
 
@@ -1237,9 +1345,10 @@ def phase_adapt_kernel_check(dev):
     return worst
 
 
-def _ce_times(dev, rng, dtype):
-    """weighted_ce forward and backward at gemma3-1b's LM loss shape (the
-    (4, 1023, V) view) with ``dtype`` logits, by CUDA-graph replay, beside
+def _ce_times(dev, rng, dtype, shape=CE_SHAPES[0]):
+    """weighted_ce forward and backward at an LM loss shape of CE_SHAPES
+    (gemma3-1b's (4, 1023, V) view unless ``shape`` names another) with
+    ``dtype`` logits, by CUDA-graph replay, beside
     the plain versions and ``F.cross_entropy(reduction="none")`` on the same
     logits (forward; its autograd backward, timed eagerly); the bound from
     the logits' bytes (the arithmetic is f32 in every instantiation)."""
@@ -1247,7 +1356,7 @@ def _ce_times(dev, rng, dtype):
 
     from repro_torch.kernels import weighted_ce as wce
 
-    _, b, s, v, _ = CE_SHAPES[0]
+    _, b, s, v, _ = shape
     x, t, g = _ce_inputs(rng, dev, b, s, v, True, dtype)
     rows = t.numel()
     _, lse = wce._fwd_cuda(x, t)
@@ -1289,7 +1398,8 @@ def _ce_times(dev, rng, dtype):
 def phase_new_kernel_time(dev):
     """weighted_ce forward and backward at gemma3-1b's LM loss shape in
     the main path's dtype (f32 logits), and its f16 instantiation beside
-    the bf16 one at the same shape (``_ce_times``); lion_adapt and
+    the bf16 one at the same shape (``_ce_times``), then at qwen2-moe's and
+    minicpm3's LM loss shapes (f32 logits); lion_adapt and
     adafactor_adapt at bert-base's embedding beside their plain versions
     (no library call)."""
     from repro_torch.kernels import adafactor_adapt, lion_adapt, weighted_ce as wce
@@ -1302,6 +1412,10 @@ def phase_new_kernel_time(dev):
         f16[kernel]["bf16_ms"] = bf16[kernel]["ms"]
         f16[kernel]["bf16_ms_repeat"] = bf16[kernel]["ms_repeat"]
         out[f"{kernel}_f16"] = f16[kernel]
+    # the LM losses of phases 18 and 19, f32 logits
+    for shape in CE_SHAPES[2:]:
+        for kernel, e in _ce_times(dev, rng, torch.float32, shape).items():
+            out[kernel][shape[0]] = e
 
     n = ADAPT_SIZES[0]
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
@@ -1422,6 +1536,7 @@ def _diff(got, ref, got_s, ref_s, state, sign_lr=None):
         d_max, share, beyond, not_flips, total, nans = 0.0, 0.0, 0, 0, 0, [0, 0, 0]
         for x, y, y0 in zip(tree.tree_leaves(got_s[field]), tree.tree_leaves(ref_s[field]),
                             tree.tree_leaves(getattr(state, field))):
+            x = x.to(y.device)  # a leaf kept on the host comes back one at a time
             bad_x, bad_y = ~torch.isfinite(x), ~torch.isfinite(y)
             same = (x == y) | (torch.isnan(x) & torch.isnan(y))
             nans = [nans[0] + int(bad_x.sum()), nans[1] + int(bad_y.sum()),
@@ -1478,12 +1593,14 @@ def _hold(tag, diff, sign_lr=None, nonfinite_ok=False):
                 f"coordinates beyond it, {not_flips} of them no sign flip")
 
 
-def _step_pair(learner, state, base, meta, counted=(), sign_lr=None):
+def _step_pair(learner, state, base, meta, counted=(), sign_lr=None, host=False):
     """One meta step from ``state`` through the kernels and with every
     kernel plain. Returns the plain state, their ``_diff``, the kernel
     step's launches of the ``counted`` kernels and the two steps' seconds.
     Only theta and lam of the kernel step are kept while the plain step
-    runs."""
+    runs, with ``host`` in host memory (a parameter-sized tree off a card
+    that is nearly full)."""
+    from repro_torch import tree
     from repro_torch.core.engine import packed_read
     from repro_torch.kernels import dispatch
 
@@ -1494,6 +1611,9 @@ def _step_pair(learner, state, base, meta, counted=(), sign_lr=None):
     t1 = time.perf_counter()
     launches = {n: dispatch.launches(n) for n in counted}
     got_s = {"theta": got_s.theta, "lam": got_s.lam}
+    if host:
+        got_s = tree.tree_map(lambda x: x.cpu(), got_s)
+        torch.cuda.empty_cache()
     with dispatch.plain_everywhere():
         ref_s, ref = learner.step_fn(state, base, meta)
         ref = packed_read(ref)
@@ -1561,17 +1681,13 @@ def phase_train_gemma_f32(base_cfg, dev, batch=2, seq=1024, unroll=2, steps=3):
     window masks): _held_steps with base Adam eps 1e-3 on warm rows, and one
     step at eps 1e-8 reported, not held (as phase_train_f32)."""
     from repro_torch import optim, tree
-    from repro_torch.kernels import flash_attn, weighted_ce as wce
     from repro_torch.models import Model
 
     cfg = base_cfg.replace(dtype="float32")
     model = Model(cfg, device=dev)
     batches = _lm_warm_batches(cfg, dev, batch, seq, unroll, SEED + 40)
     learner = _learner(model, dev, unroll, optim.adam(1e-3, eps=1e-3))
-    L, K = cfg.num_layers, unroll
-    want = {wce.FWD: K + 3, wce.BWD: K + 1, flash_attn.FWD: L * (K + 3) + L * (K + 1),
-            flash_attn.DQ: L * (K + 1), flash_attn.DKV: L * (K + 1),
-            "adam_adapt": len(tree.tree_leaves(learner.state.theta))}
+    want = _lm_want(cfg, unroll, len(tree.tree_leaves(learner.state.theta)))
     _, out = _held_steps("train gemma f32", learner, batches, steps, want)
     del learner
     torch.cuda.empty_cache()
@@ -2430,6 +2546,9 @@ def phase_distributed(dev, out_dir, batch=16, seq=128, unroll=2, steps=3):
 
 
 PHASES = ("base_unroll", "local_terms", "meta_pass", "cd_passes", "finalize", "meta_update")
+#: model ranges charged besides the phases (they lie inside them): the MoE
+#: layer's forward and its recomputation, not the backward autograd runs
+SPANS = ("apply_moe",)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -2437,8 +2556,10 @@ def _device_time_by_phase(trace_path):
     """Device time of a profiled step from its chrome trace: each kernel,
     copy or fill is charged to the innermost engine phase (a
     record_function range on the host) that holds the host call that
-    launched it, matched by the trace's correlation ids. Returns (ms by
-    phase, [(kernel name, (us, count))] by time, total device ms)."""
+    launched it, matched by the trace's correlation ids; where a SPANS
+    range occurs, the time launched within it is added as one more key.
+    Returns (ms by phase, [(kernel name, (us, count))] by time, total
+    device ms)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     launched = {e["args"]["correlation"]: e["ts"] for e in events
@@ -2446,7 +2567,10 @@ def _device_time_by_phase(trace_path):
                 and "correlation" in e.get("args", {})}
     ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
               if e.get("cat") == "user_annotation" and e.get("name") in PHASES]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") in SPANS]
     by_phase = {name: 0.0 for name in PHASES + ("outside the phases",)}
+    in_spans = 0.0
     by_kernel = {}
     total = 0.0
     for e in events:
@@ -2459,8 +2583,13 @@ def _device_time_by_phase(trace_path):
         inner = [r for r in ranges if ts is not None and r[0] <= ts <= r[1]]
         name = min(inner, key=lambda r: r[1] - r[0])[2] if inner else "outside the phases"
         by_phase[name] += e["dur"]
+        if ts is not None and any(a <= ts <= b for a, b in spans):
+            in_spans += e["dur"]
     kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
-    return {k: v / 1e3 for k, v in by_phase.items()}, kernels, total / 1e3
+    by_phase = {k: v / 1e3 for k, v in by_phase.items()}
+    if spans:
+        by_phase["within " + "/".join(SPANS)] = in_spans / 1e3
+    return by_phase, kernels, total / 1e3
 
 
 def _timed_fit(tag, learner, it, steps, want_per_step, out_dir, trace_name, per_step):
@@ -2533,10 +2662,11 @@ def _timed_fit(tag, learner, it, steps, want_per_step, out_dir, trace_name, per_
 
 def _train_launches(cfg, unroll, leaves):
     """Per meta step: L(K+3) flash forwards + L(K+1) remat recomputes, L(K+1)
-    dq and dk/dv, one adam_adapt per theta leaf."""
+    dq and dk/dv over the L GQA layers (none with MLA), one adam_adapt per
+    theta leaf."""
     from repro_torch.kernels import flash_attn
 
-    L, K = cfg.num_layers, unroll
+    L, K = _gqa_layers(cfg), unroll
     return {flash_attn.FWD: L * (K + 3) + L * (K + 1), flash_attn.DQ: L * (K + 1),
             flash_attn.DKV: L * (K + 1), "adam_adapt": leaves}
 
@@ -2569,7 +2699,6 @@ def phase_train_gemma_bf16(cfg, dev, out_dir, batch=4, seq=1024, unroll=2, steps
     import io
 
     from repro_torch import optim, tree
-    from repro_torch.kernels import weighted_ce as wce
     from repro_torch.launch import train
     from repro_torch.models import Model
 
@@ -2594,14 +2723,181 @@ def phase_train_gemma_bf16(cfg, dev, out_dir, batch=4, seq=1024, unroll=2, steps
         while True:
             yield make_batch(batch, unroll), make_batch(max(batch // 2, 1))
 
-    want = {wce.FWD: unroll + 3, wce.BWD: unroll + 1,
-            **_train_launches(cfg, unroll, len(tree.tree_leaves(learner.state.theta)))}
+    want = _lm_want(cfg, unroll, len(tree.tree_leaves(learner.state.theta)))
     result = _timed_fit("train_gemma_bf16", learner, it(), steps, want, out_dir,
                         "train_gemma_step",
                         {"samples": batch * unroll, "tokens": batch * unroll * seq})
     result.update({"batch": batch, "seq": seq, "unroll": unroll,
                    "meta_batch": max(batch // 2, 1), "cli_rows": rows})
     return result
+
+
+# ---------------------------------------------------------------------------
+# phases 18-19: the moe family (qwen2-moe-a2.7b) and MLA (minicpm3-4b)
+# ---------------------------------------------------------------------------
+
+
+class _RouteRecorder:
+    """Records the expert indices of every MoE routing call (the
+    ``repro_torch.models.moe.route`` seam) while it is entered."""
+
+    def __init__(self):
+        self.idx = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._route = route = moe.route
+
+        def recording(cfg, probs, capacity):
+            out = route(cfg, probs, capacity)
+            self.idx.append(out[0].detach())
+            return out
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+
+    def flips(self):
+        """The kernel step's calls against the plain step's (the first and
+        second half of the record, one step each, call for call):
+        [(call, token) rows whose chosen experts differ, rows, calls]."""
+        n = len(self.idx) // 2
+        if 2 * n != len(self.idx):
+            raise AssertionError(f"routing: {len(self.idx)} calls, not two equal steps")
+        diff = rows = 0
+        for a, b in zip(self.idx[:n], self.idx[n:]):
+            a, b = a.sort(-1).values, b.sort(-1).values
+            diff += int((a != b).any(-1).sum())
+            rows += a[..., 0].numel()
+        self.idx = []
+        return [diff, rows, n]
+
+
+def _lm_want(cfg, unroll, leaves):
+    from repro_torch.kernels import weighted_ce as wce
+
+    return {wce.FWD: unroll + 3, wce.BWD: unroll + 1, **_train_launches(cfg, unroll, leaves)}
+
+
+def phase_family_train_f32(base_cfg, dev, layers, tag, batch=2, seq=1024, unroll=2, steps=3):
+    """Full width, depth ``layers``, f32, the per-sequence LM loss, batch
+    2, seq 1024, unroll 2, warm rows, base Adam eps 1e-3: three step pairs,
+    kernels against plain_everywhere from one state, with the launches held
+    to the code's formula. A MoE config counts the (call, token) rows whose
+    chosen experts differ between the two steps: the router reads inputs
+    that differ by rounding, and a token whose k-th and (k+1)-th gate
+    probabilities lie within it takes another expert (an O(1) change of its
+    output). With none, the pair is held at phase 7's tolerances; with
+    some, the line says so and only the losses are held."""
+    from repro_torch import optim, tree
+    from repro_torch.models import Model
+
+    cfg = base_cfg.replace(dtype="float32", num_layers=layers)
+    model = Model(cfg, device=dev)
+    batches = _lm_warm_batches(cfg, dev, batch, seq, unroll, SEED + 70)
+    torch.cuda.reset_peak_memory_stats()
+    learner = _learner(model, dev, unroll, optim.adam(1e-3, eps=1e-3))
+    want = _lm_want(cfg, unroll, len(tree.tree_leaves(learner.state.theta)))
+    n_params = model.num_params(learner.state.theta)
+    # the learner lets go of the initial state and the kernel step's theta
+    # waits on the host (host=True): at qwen2-moe's width the card holds one
+    # state of three parameter-sized trees beside a step's own, with little
+    # room to spare for the allocator's split free blocks
+    state, learner.state, rows, flips = learner.state, None, [], []
+    with _RouteRecorder() as rec:
+        for i in range(steps):
+            state, diff, launches, secs = _step_pair(learner, state, *batches(i), tuple(want),
+                                                     host=True)
+            if launches != want:
+                raise AssertionError(f"{tag} step {i}: launches {launches} != {want}")
+            flip = rec.flips() if cfg.family == "moe" else [0, 0, 0]
+            diff["routing_flips"] = flip
+            diff["seconds_kernels_plain"] = list(secs)
+            flips.append(flip[0])
+            if flip[0] == 0:
+                _hold(f"{tag} step {i}", diff)
+            else:
+                for key in ("base_loss", "meta_loss"):
+                    got, ref, _ = diff[key]
+                    if not abs(got - ref) <= F32_TOL[key] * abs(ref) + 1e-7:
+                        raise AssertionError(f"{tag} step {i} {key}: {got!r} vs {ref!r} "
+                                             f"({flip[0]} routing flips)")
+                log(f"{tag} step {i}: {flip[0]} of {flip[1]} routed (call, token) rows chose "
+                    f"other experts on the plain route: losses held, theta, lam, eps and "
+                    f"hypergrad_norm reported, not held")
+            rows.append(diff)
+    out = {"layers": layers, "params": n_params, "batch": batch,
+           "seq": seq, "unroll": unroll, "base_adam_eps": 1e-3, "launches_per_step": want,
+           "routing_flips_per_step": flips, "held_in_full": [f == 0 for f in flips],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "per_step": rows}
+    del learner, state
+    torch.cuda.empty_cache()
+    log(f"{tag}: " + json.dumps(out))
+    return out
+
+
+def phase_family_train_bf16(cfg, dev, out_dir, layers, tag, batch=4, seq=1024, unroll=2,
+                            steps=10):
+    """Full width, depth ``layers``, the config's own dtypes (f32
+    parameters, bf16 activations): ``steps`` meta steps through
+    MetaLearner.fit at batch 4, seq 1024, unroll 2, meta batch 2 on the
+    train CLI's LM stream, as phase 10 times gemma3-1b, the launches held
+    (``_timed_fit``); the profiled step's device time by phase includes the
+    MoE layers' forward share (the ``apply_moe`` range)."""
+    from repro_torch import optim, tree
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+
+    cfg = cfg.replace(num_layers=layers)
+    model = Model(cfg, device=dev)
+    learner = _learner(model, dev, unroll, optim.adam(1e-3))
+    make_batch = train.make_batch_fn(cfg, seq, dev, np.random.default_rng(SEED + 80))
+
+    def it():
+        while True:
+            yield make_batch(batch, unroll), make_batch(max(batch // 2, 1))
+
+    want = _lm_want(cfg, unroll, len(tree.tree_leaves(learner.state.theta)))
+    result = _timed_fit(tag, learner, it(), steps, want, out_dir, f"{tag}_step",
+                        {"samples": batch * unroll, "tokens": batch * unroll * seq})
+    result.update({"layers": layers, "params": model.num_params(learner.state.theta),
+                   "batch": batch, "seq": seq, "unroll": unroll,
+                   "meta_batch": max(batch // 2, 1)})
+    del learner
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_family(cfg, dev, out_dir, layers, tag):
+    """Phase 18 (qwen2-moe-a2.7b) or 19 (minicpm3-4b): (a) serving in f32
+    at full width and depth, tokens equal to the serial path; (b) serving
+    in bf16 with qps, TTFT, TPOT, peak memory and flash_decode launches (24
+    per decode step for qwen2-moe, none for MLA's plain decode); (c) and
+    (d) training at full width and depth ``layers``, f32 step pairs and
+    bf16 timed steps."""
+    from repro_torch import tree
+    from repro_torch.models import Model
+
+    out = {}
+    t0 = time.perf_counter()
+    params = Model(cfg, device=dev).init(SEED)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in tree.tree_leaves(params))
+    log(f"init: {cfg.name} {n} params f32 in {time.perf_counter() - t0:.2f}s")
+    out["serve_f32"] = phase_serve_f32(cfg, params, dev, f"{tag}_serve_f32")
+    out["serve_bf16"], out["flash_decode_launches"] = phase_serve_bf16(
+        cfg, params, dev, out_dir, f"{tag}_serve_bf16")
+    out["params_full_depth"] = n
+    del params
+    torch.cuda.empty_cache()
+    out["train_f32"] = phase_family_train_f32(cfg, dev, layers, f"{tag}_train_f32")
+    out["train_bf16"] = phase_family_train_bf16(cfg, dev, out_dir, layers, f"{tag}_train_bf16")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2651,6 +2947,8 @@ def main():
                   "max_err_bf16": worst[torch.bfloat16],
                   "bf16_vs_f32_share_of_bound": worst_vs_f32,
                   "kernel_ms": timing["ms"], **timing})
+    qwen = configs.get_config("qwen2-moe-a2.7b")
+    entry[qwen.name] = timed("qwen_decode_time", phase_qwen_decode_time, dev, qwen)
 
     # phase 4: the training kernels
     t_worst, t_share, adam_worst = timed("train_kernel_check", phase_train_kernel_check, dev)
@@ -2658,7 +2956,9 @@ def main():
     ce_worst = timed("ce_kernel_check", phase_ce_kernel_check, dev)
     adapt_worst = timed("adapt_kernel_check", phase_adapt_kernel_check, dev)
     t_time = timed("train_kernel_time", phase_train_kernel_time, dev, bert, batch=48, seq=128)
-    for name, e in timed("gemma_attn_time", phase_gemma_attn_time, dev, cfg).items():
+    for name, e in timed("gemma_attn_time", phase_layer_attn_time, dev, cfg).items():
+        t_time[name].update(e)
+    for name, e in timed("qwen_attn_time", phase_layer_attn_time, dev, qwen).items():
         t_time[name].update(e)
     t_time.update(timed("new_kernel_time", phase_new_kernel_time, dev))
     train_entries = []
@@ -2749,9 +3049,24 @@ def main():
         by_name[name]["launches_distributed_path"] = (
             "distributed manual, each of 2 gloo ranks (3 meta steps)")
 
+    # phases 18-19: the moe family and MLA at full width (training at a cut
+    # depth: the f32 parameter-sized trees of the step at full depth pass 80 GB)
+    fam = {}
+    for tag, arch, layers in (("moe", "qwen2-moe-a2.7b", 2), ("mla", "minicpm3-4b", 16)):
+        fam[tag] = timed(tag, phase_family, configs.get_config(arch), dev, args.out, layers,
+                         tag)
+        torch.cuda.empty_cache()
+    entry["launches_moe_serve_bf16"] = fam["moe"]["flash_decode_launches"]
+    entry["launches_mla_serve_bf16"] = fam["mla"]["flash_decode_launches"]
+    for name, e in by_name.items():
+        for tag, out in fam.items():
+            if name in out["train_bf16"]["launches"]:
+                e[f"launches_{tag}_train_bf16"] = out["train_bf16"]["launches"][name]
+
     # launches: each kernel's count from this slice's main path (the gemma3-1b
     # bf16 run) where it runs there, else from the run that drives it (the
-    # Lion and Adafactor kernel steps); the bert-base run's counts beside them
+    # Lion and Adafactor kernel steps); the bert-base run's counts beside them,
+    # and those of phases 18-19's bf16 runs
     for name, e in by_name.items():
         if name in gemma_out["launches"]:
             e["launches"] = gemma_out["launches"][name]

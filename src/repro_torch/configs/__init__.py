@@ -1,13 +1,19 @@
-"""Architecture config registry of the port. Holds the architectures whose
-slices have been ported; the others join with their model families."""
+"""Architecture config registry of the port: the architectures of the
+families it runs (dense, with and without MLA, moe and encoder). The
+recurrent, audio and vision architectures join with their families."""
 
 import importlib
 
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
-    "bert-base": "bert_base",
     "gemma3-1b": "gemma3_1b",
+    "kimi-k2-1t-a32b": "kimi_k2",
+    "gemma2-9b": "gemma2_9b",
+    "qwen2-moe-a2.7b": "qwen2_moe",
+    "gemma3-27b": "gemma3_27b",
+    "minicpm3-4b": "minicpm3_4b",
+    "bert-base": "bert_base",
 }
 
 

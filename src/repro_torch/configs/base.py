@@ -3,8 +3,8 @@
 The port's own copy of ``repro.configs.base.ArchConfig`` (the port imports
 nothing of the JAX package). Field names, defaults and ``layer_kinds`` are
 identical, so a config means the same model in both packages. The fields
-of families the port does not run yet (MoE, SSM, MLA, encoder-decoder,
-VLM) stay, so configs copy across unchanged as their slices arrive.
+of families the port does not run yet (SSM, encoder-decoder, VLM) stay,
+so configs copy across unchanged as their slices arrive.
 """
 
 from __future__ import annotations

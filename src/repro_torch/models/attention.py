@@ -1,16 +1,18 @@
-"""GQA self-attention, after ``src/repro/models/attention.py``: the
-training branch (no cache, through the ``flash_attention`` kernel) and the
-decode branch over an explicit KV cache.
+"""Attention, after ``src/repro/models/attention.py``: GQA
+self-attention (the training branch through the ``flash_attention``
+kernel, the decode branch over an explicit KV cache) and MLA (multi-head
+latent attention over a compressed cache, plain ops in both packages).
 
 Layout conventions (the JAX package's):
   activations x: (B, S, D)
   q/k/v:        (B, S, H, Dh)
   KV cache:     {"k": (B, T, KV, Dh), "v": (B, T, KV, Dh)}  (T = cache length)
+  MLA cache:    {"ckv": (B, T, r), "krope": (B, T, Dr)}
 
 ``local_flag`` is a Python bool per layer (the port walks the layers in a
 Python loop where JAX scans them with a traced flag).
 
-MLA and cross-attention come with the model-family slices.
+Cross-attention comes with the audio and vision families.
 """
 
 from __future__ import annotations
@@ -165,16 +167,8 @@ def self_attention(
 
     ck, cv = cache["k"], cache["v"]
     T = ck.shape[1]
-    if _is_vector(cache_pos):
-        lane = torch.arange(B, device=x.device)[:, None]
-        idx = cache_pos.long()[:, None] + torch.arange(S, device=x.device)
-        ck[lane, idx] = k.to(ck.dtype)
-        cv[lane, idx] = v.to(cv.dtype)
-    else:
-        # lax.dynamic_update_slice clamps the start so the slice fits
-        start = min(max(int(cache_pos), 0), T - S)
-        ck[:, start:start + S] = k.to(ck.dtype)
-        cv[:, start:start + S] = v.to(cv.dtype)
+    _write_rows(ck, k, cache_pos)
+    _write_rows(cv, v, cache_pos)
 
     if S == 1:
         out = flash_attn.flash_decode(
@@ -195,3 +189,113 @@ def init_kv_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, *, device,
     shape = tuple(lead) + (batch, length, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_rows(cache: torch.Tensor, rows: torch.Tensor, cache_pos) -> None:
+    """Write the S new rows (B, S, ...) into ``cache`` (B, T, ...) in
+    place at ``cache_pos``: a scalar start (a contiguous slice, clamped so
+    that it fits, as ``lax.dynamic_update_slice``) or a (B,) tensor of
+    per-lane starts (a scatter)."""
+    B, S = rows.shape[:2]
+    if _is_vector(cache_pos):
+        lane = torch.arange(B, device=rows.device)[:, None]
+        idx = cache_pos.long()[:, None] + torch.arange(S, device=rows.device)
+        cache[lane, idx] = rows.to(cache.dtype)
+    else:
+        start = min(max(int(cache_pos), 0), cache.shape[1] - S)
+        cache[:, start:start + S] = rows.to(cache.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek/MiniCPM3-style multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg, gen, *, dtype=torch.float32, device, lead: Tuple[int, ...] = ()):
+    D, H = cfg.d_model, cfg.num_heads
+    r, rq = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kw = dict(dtype=dtype, device=device, lead=lead)
+
+    def ones(n):  # the norms' f32 scales
+        return torch.ones(tuple(lead) + (n,), dtype=torch.float32, device=device)
+
+    p = {
+        "wkv_a": cm.dense_init(gen, (D, r + dr), **kw),
+        "kv_norm": ones(r),
+        "wkv_b": cm.dense_init(gen, (r, H * (dn + dv)), **kw),
+        "wo": cm.dense_init(gen, (H * dv, D), **kw),
+    }
+    if rq:
+        p["wq_a"] = cm.dense_init(gen, (D, rq), **kw)
+        p["q_norm"] = ones(rq)
+        p["wq_b"] = cm.dense_init(gen, (rq, H * (dn + dr)), **kw)
+    else:
+        p["wq"] = cm.dense_init(gen, (D, H * (dn + dr)), **kw)
+    return p
+
+
+def _rmsnorm_vec(x, scale, eps=1e-6):
+    """RMS norm in f32 with an f32 scale, back to x's dtype."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) * scale).to(x.dtype)
+
+
+def mla_attention(cfg, p, x, positions, *, cache=None, cache_pos=None):
+    """Without a cache (training): causal attention over the S new rows;
+    returns (out, None). With a cache: the S new ``ckv`` and ``krope`` rows
+    are written into it in place at ``cache_pos`` (a scalar start or (B,)
+    per-lane starts) and the queries attend over the whole cache, masked by
+    position; returns (out, cache). ``wkv_b`` expands the normalised
+    ``ckv`` of every cached row at every step, as in the reference."""
+
+    B, S, D = x.shape
+    H = cfg.num_heads
+    r = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+
+    if "wq_a" in p:
+        q = _rmsnorm_vec(x @ p["wq_a"].to(x.dtype), p["q_norm"]) @ p["wq_b"].to(x.dtype)
+    else:
+        q = x @ p["wq"].to(x.dtype)
+    q = q.reshape(B, S, H, dn + dr)
+    qn, qr = q[..., :dn], q[..., dn:]
+    qr = cm.apply_rope(qr, positions, cfg.rope_theta)
+
+    kv_a = x @ p["wkv_a"].to(x.dtype)  # (B, S, r + dr)
+    ckv, krope = kv_a[..., :r], kv_a[..., r:]
+    krope = cm.apply_rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]  # one shared head
+
+    if cache is not None:
+        _write_rows(cache["ckv"], ckv, cache_pos)
+        _write_rows(cache["krope"], krope, cache_pos)
+        ckv, krope = cache["ckv"], cache["krope"]
+        T = ckv.shape[1]
+        kv_pos = torch.arange(T, device=x.device)
+    else:
+        T = S
+        kv_pos = positions[0] if positions.dim() == 2 else positions
+
+    kv = _rmsnorm_vec(ckv.to(x.dtype), p["kv_norm"]) @ p["wkv_b"].to(x.dtype)
+    kv = kv.reshape(B, T, H, dn + dv)
+    kn, v = kv[..., :dn], kv[..., dn:]
+
+    # 1 / sqrt(dn + dr), both steps rounded to x's dtype as jnp does them
+    scale = cm.round_to(1.0 / cm.round_to(math.sqrt(dn + dr), x.dtype), x.dtype)
+    scores = (torch.einsum("bshd,bthd->bhst", qn, kn)
+              + torch.einsum("bshd,btd->bhst", qr, krope.to(x.dtype))) * scale
+    mask = make_mask(positions, kv_pos, causal=True)  # (B, 1, S, T)
+    scores = torch.where(mask, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs, v).reshape(B, S, H * dv)
+    return out @ p["wo"].to(x.dtype), cache
+
+
+def init_mla_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, *, device,
+                   lead: Tuple[int, ...] = ()):
+    lead = tuple(lead)
+    return {
+        "ckv": torch.zeros(lead + (batch, length, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "krope": torch.zeros(lead + (batch, length, cfg.qk_rope_head_dim), dtype=dtype,
+                             device=device),
+    }

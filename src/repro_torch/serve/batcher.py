@@ -154,9 +154,13 @@ class ContinuousBatcher:
         return self.cache.free_slot_count() > 0
 
     def admit(self, request: Request, now: float) -> Lane:
-        """Prefill the request's prompt into a free slot. The prompt is
-        right-padded to a page multiple; one block-prefill step produces
-        the first greedy token and the slot's pages."""
+        """Prefill the request's prompt into a free slot: one block-prefill
+        step of its P tokens into a cache of P rounded up to a page
+        multiple rows produces the first greedy token and the slot's
+        pages. The JAX package pads the prompt to that length instead (a
+        static shape for its compiled step); here the prompt goes in
+        unpadded, so that a MoE layer routes the serial path's tokens:
+        padded rows would take expert capacity from the prompt's own."""
 
         prompt = np.asarray(request.payload["prompt"], np.int64).reshape(-1)
         target_new = int(request.payload.get("max_new_tokens",
@@ -174,11 +178,9 @@ class ContinuousBatcher:
         try:
             self.cache.reserve(slot, P)
             cache0 = self.model.init_cache(1, P_pad, dtype=self.dtype)
-            padded = np.zeros((1, P_pad), np.int64)
-            padded[0, :P] = prompt
             last, filled = prefill_mod.chunked_prefill(
-                self.model, self.params, torch.as_tensor(padded).to(self.device),
-                cache0, lengths=torch.tensor([P], device=self.device))
+                self.model, self.params, torch.as_tensor(prompt[None]).to(self.device),
+                cache0)
             self.cache.write_prefill(slot, filled, P)
         except Exception:
             self.cache.free(slot)

@@ -155,3 +155,19 @@ def test_unknown_optimizers_are_refused():
     with pytest.raises(ValueError, match="unknown optimizer 'adagrad'"):
         optim.get_optimizer("adagrad", 1e-3)
     assert sorted(optim.optimizers._FACTORIES) == sorted(joptim.optimizers._FACTORIES)
+
+
+def test_plain_version_in_pieces_is_bitwise_the_whole(monkeypatch):
+    """Above PLAIN_CHUNK elements the plain version works piece by piece
+    (an expert stack's temporaries): the same values, bitwise."""
+    from repro_torch.kernels import adam_adapt as aa
+
+    rng = np.random.default_rng(4)
+    g, m, gm = (torch.from_numpy(rng.standard_normal(2500).astype(np.float32) * 1e-2)
+                for _ in range(3))
+    v = torch.from_numpy(rng.standard_normal(2500).astype(np.float32)) ** 2 * 1e-4
+    kw = dict(t=3, b1=0.9, b2=0.999, eps=1e-8, lr=1e-3)
+    whole, whole_ss = aa.adam_adapt_plain(g, m, v, gm, **kw)
+    monkeypatch.setattr(aa, "PLAIN_CHUNK", 1000)
+    pieces, pieces_ss = aa.adam_adapt_plain(g, m, v, gm, **kw)
+    assert torch.equal(pieces, whole) and torch.equal(pieces_ss, whole_ss)
