@@ -18,8 +18,10 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
 3. decode kernel: ``flash_decode`` against its plain PyTorch version on
    the card at gemma3-1b shapes (B in {1, 4, 8}, KV=1, G=4, Dh=256, T in
    {16, 128, 1024, 2048}, window on and off, softcap 0 and 50, cluster
-   sizes (splits) 1, 3, 7 and the plan's), and at qwen2-moe-a2.7b's layer
-   (B 1 and 4, T 1024, KV 16, G 1, Dh 128; splits 1, 4 and the plan's),
+   sizes (splits) 1, 3, 7 and the plan's), at qwen2-moe-a2.7b's layer
+   (B 1 and 4, T 1024, KV 16, G 1, Dh 128; splits 1, 4 and the plan's)
+   and at the serving twin's (gemma3-1b smoke: B 1 and 8, T 16 and 32, KV
+   1, G 2, Dh 64, window 8 on and off; splits 1, 2 and the plan's),
    f32 within 1e-5 and bf16 within
    2e-2 abs, and the 2-byte dtypes within half an ulp (+1e-5) of the plain
    version in f32 on the same inputs; then the kernel, plain and library
@@ -31,11 +33,17 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    backward kernels through autograd, at bert-base's shape, at a
    gemma-like one (G 4, KV 1, Dh 256, window, softcap, causal, ragged S
    and T), at gemma3-1b's full local and global layers (B 4, S = T 1024),
-   with whole key and query tiles of padding and at qwen2-moe-a2.7b's layer
-   (B 4, S = T 1024, KV 16, G 1, Dh 128, causal), f32 (1e-5 forward, 5e-5
-   + 1e-4 relative gradients) and bf16 (2e-2 + 2e-2 relative), the bf16
-   results also within half an ulp (plus the f32 tolerance) of the plain
-   version in f32 on the same inputs, and the bf16 gradients of two runs
+   with whole key and query tiles of padding, at qwen2-moe-a2.7b's layer
+   (B 4, S = T 1024, KV 16, G 1, Dh 128, causal) and at the paper-bench
+   twins' layers (S = T 32, Dh 64: mini-BERT's non-causal H 2, 4, 6 at G 1
+   and gemma3-1b smoke's causal G 2 over KV 1, window 8 and none, at each
+   batch the twins give them), f32 (1e-5 forward, 5e-5
+   + 1e-4 relative gradients) and bf16 (2e-2 + 2e-2 relative), each
+   against the plain version in f32 on the same inputs (a bf16 plain
+   version's own rounding passes the bf16 tolerance at Dh 64; its share
+   is printed, not held), the bf16 kernels' results from their own lse
+   also within half an ulp (plus the f32 tolerance) of the plain version
+   in f32, and the bf16 gradients of two runs
    bitwise equal; a second derivative through the attention and CE
    kernels raises (first order only), through their plain versions not;
    ``adam_adapt`` at the embedding's 23,440,896 elements, the stacked MLP
@@ -175,12 +183,36 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    decode and training attention are plain ops in both packages, so no
    ``flash_decode`` or flash attention kernel launches (held at 0); the
    CE and ``adam_adapt`` launches are held.
+20. continued pretraining and the paper's experiments: (a) gemma3-1b at
+   full width and depth in f32 through ``problems.make_auxiliary_spec(
+   model.lm_loss, model.per_example)`` (ft batch 1 + pt batch 1, seq 1024,
+   unroll 2, meta batch 1, warm rows, base Adam eps 1e-3): phase 7's three
+   held step pairs, each kernel step's launches held to 2K + 5 model
+   forwards and 2K + 1 backwards (attention with its remat recomputes, the
+   CE); (b) in its own dtypes, ft batch 2 + pt batch 2, meta batch 2, 10
+   meta steps as phase 10 (wall, tokens/s over K (B_ft + B_pt) S, peak
+   memory, busy share, device time by phase, the launches held); (c)
+   ``serve.ScoreAPI`` over phase 16's export (4,096 rows): 600 requests of
+   the three kinds, all submitted and then drained by one ``run_pending``,
+   each answer equal to a direct ``ScoreStore`` lookup, the coalesced
+   batches, the drain's requests/s and µs per batch (the API's p50/p99 run
+   from submission, so here they are the wait behind the submit loop);
+   (d) the seven paper-bench twins
+   (``repro_torch.perf.bench_*``) at their JAX ``fast`` sizes, each
+   ``BENCH_torch_<name>.json`` in DIR/paper_benches, one line each with
+   its rows, claims and kernel launches (the mini-BERT and gemma3 smoke
+   twins must launch the attention kernels and ``adam_adapt``, the serving
+   twin ``flash_decode``), each signature at which a twin launches the
+   attention kernels (B, S, T, KV, G, Dh, causal, window, softcap, dtype)
+   one that phases 3 and 4 held against the plain versions;
+   ``bench_serve``'s three asserts hold.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. The weights and data are random, from seeds; nothing is downloaded.
 """
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -202,6 +234,10 @@ from repro_torch.perf.timers import HBM_BYTES_PER_S, PEAK_OPS_PER_S, graph_ms  #
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SEED = 0
+#: the attention kernels' launch signatures that phases 3 and 4 held
+#: against the plain versions (_decode_sig, _train_sig); phase 20(d) fails
+#: if a twin launches one outside them
+CHECKED = {"flash_decode": set(), "flash_attention": set()}
 
 
 def log(*parts):
@@ -327,6 +363,14 @@ def _decode_inputs(rng, b, t, dtype, dev, kv=1, g=4, dh=256):
     return mk((b, 1, kv * g, dh)), mk((b, t, kv, dh)), mk((b, t, kv, dh))
 
 
+def _decode_sig(q, k, local, window, softcap):
+    """(B, T, KV, G, Dh, engaged window, softcap, dtype) of a decode launch."""
+    b, _, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    return (b, t, kv, h // kv, dh, int(window or 0) if local else 0, float(softcap or 0.0),
+            q.dtype)
+
+
 def _positions(rng, b, t):
     """Per-lane positions < T, covering pos < 512 and pos >= 512 where T
     allows both."""
@@ -391,6 +435,7 @@ def phase_kernel_check(dev):
                                     f"B={b} T={t} local={local} softcap={softcap} "
                                     f"n_splits={n_splits}"))
                             n += 1
+                        CHECKED["flash_decode"].add(_decode_sig(q, k, local, **kw))
     # the kernel's other group sizes, head dims and f16, beyond gemma3-1b
     for kv, g, dh, dtype in [(2, 1, 64, torch.float32), (2, 2, 128, torch.float32),
                              (1, 3, 64, torch.float32), (2, 8, 256, torch.float32),
@@ -407,6 +452,7 @@ def phase_kernel_check(dev):
         if dtype != torch.float32:
             worst_vs_f32 = max(worst_vs_f32, _vs_f32(flash_attn, got, q, k, v, pos, True,
                                                      kw, f"KV={kv} G={g} Dh={dh}"))
+        CHECKED["flash_decode"].add(_decode_sig(q, k, True, **kw))
         n += 1
     # qwen2-moe-a2.7b's decode layer (H 16 over KV 16, G 1, Dh 128, no
     # window or softcap) at its serving shape
@@ -427,6 +473,33 @@ def phase_kernel_check(dev):
                         flash_attn, got, q, k, v, pos, False, {},
                         f"qwen2-moe B={b} n_splits={n_splits}"))
                 n += 1
+            CHECKED["flash_decode"].add(_decode_sig(q, k, False, 0, 0.0))
+    # the serving twin's decode layers (perf/bench_serve.py: gemma3-1b smoke,
+    # H 2 over KV 1, G 2, Dh 64, window 8 on the local layer, no softcap) at
+    # its batches and bucketed cache lengths
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 8):
+            for t in (16, 32):
+                q, k, v = _decode_inputs(rng, b, t, dtype, dev, kv=1, g=2, dh=64)
+                pos = torch.from_numpy(_positions(rng, b, t).astype(np.int32)).to(dev)[:, None]
+                for local in (True, False):
+                    kw = dict(window=8, softcap=0.0)
+                    plain = flash_attn.flash_decode(q, k, v, pos, local, backend="plain", **kw)
+                    for n_splits in (1, 2, None):
+                        got = flash_attn.flash_decode(q, k, v, pos, local, n_splits=n_splits,
+                                                      **kw)
+                        err = (got.float() - plain.float()).abs().max().item()
+                        if not err <= TOL[dtype]:
+                            raise AssertionError(
+                                f"flash_decode vs plain: err {err:.3e} at the serving twin's "
+                                f"layer B={b} T={t} local={local} {dtype} n_splits={n_splits}")
+                        worst[dtype] = max(worst[dtype], err)
+                        if dtype != torch.float32:
+                            worst_vs_f32 = max(worst_vs_f32, _vs_f32(
+                                flash_attn, got, q, k, v, pos, local, kw,
+                                f"serving twin B={b} T={t} local={local} n_splits={n_splits}"))
+                        n += 1
+                    CHECKED["flash_decode"].add(_decode_sig(q, k, local, **kw))
     # the blocks' shares of the visible rows, by the library's own
     # arithmetic, are the ones the CPU tests hold (flash_attn.decode_shares)
     n_shares = 0
@@ -686,8 +759,12 @@ def profile_step(model, params, scfg, prompts, out_dir, name="decode_step"):
 #: (name, B, S, T, KV, G, Dh, causal, window, softcap, padded): bert-base's
 #: layer, a gemma-like training shape with ragged S and T, gemma3-1b's full
 #: local and global layers, padding (keys 64-191 and lane 1's queries 32-95
-#: at position -1: whole key and query tiles of both kernels) and
-#: qwen2-moe-a2.7b's layer (G 1, Dh 128)
+#: at position -1: whole key and query tiles of both kernels),
+#: qwen2-moe-a2.7b's layer (G 1, Dh 128), and the paper-bench twins' layers
+#: (perf/bench_*.py), each half of a 64-key tile at Dh 64: mini-BERT at
+#: widths 128, 256, 384 (H 2, 4, 6 over as many KV heads, non-causal) at
+#: its training and evaluation batches, and gemma3-1b's smoke layers (H 2
+#: over KV 1, window 8 on the local one) at bench_cont_pretrain's batches
 TRAIN_SHAPES = [
     ("bert-base", 48, 128, 128, 12, 1, 64, False, 0, 0.0, False),
     ("gemma-like", 2, 300, 333, 1, 4, 256, True, 128, 50.0, False),
@@ -695,6 +772,10 @@ TRAIN_SHAPES = [
     ("gemma3-1b global", 4, 1024, 1024, 1, 4, 256, True, 0, 0.0, False),
     ("padded", 2, 170, 250, 1, 4, 128, True, 0, 0.0, True),
     ("qwen2-moe-a2.7b", 4, 1024, 1024, 16, 1, 128, True, 0, 0.0, False),
+    *((f"mini-bert H{kv} B{b}", b, 32, 32, kv, 1, 64, False, 0, 0.0, False)
+      for kv, b in ((2, 16), (2, 32), (2, 128), (4, 16), (6, 16))),
+    *((f"gemma3-1b smoke {tag} B{b}", b, 32, 32, 1, 2, 64, True, window, 0.0, False)
+      for tag, window in (("local", 8), ("global", 0)) for b in (16, 64, 128)),
 ]
 #: the plain forward drops padded keys on its chunked path only (make_mask
 #: keeps them, as the JAX reference's does): the padded shape runs it chunked
@@ -722,6 +803,14 @@ def _attn_inputs(rng, dev, dtype, b, s, t, kv, g, dh, padded=False):
     return q, k, v, cot, q_pos, kv_pos
 
 
+def _train_sig(q, k, causal, window, softcap):
+    """(B, S, T, KV, G, Dh, causal, engaged window, softcap, dtype) of a
+    training-attention launch."""
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    return (b, s, t, kv, h // kv, dh, bool(causal), int(window), float(softcap), q.dtype)
+
+
 def _excess(got, ref, atol, rtol):
     """Worst |got - ref| over its allowance atol + rtol |ref| (fails above 1)."""
     got, ref = got.float(), ref.float()
@@ -735,6 +824,10 @@ def phase_train_kernel_check(dev):
     names = (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV)
     worst = {n: {torch.float32: 0.0, torch.bfloat16: 0.0} for n in names}
     share_vs_f32 = {n: 0.0 for n in names}
+    # the bf16 plain version's own distance from the plain in f32, as a
+    # share of the bf16 tolerance: observed, not held (a bf16 plain version
+    # rounds as it goes; past 1, it cannot be the bf16 kernels' reference)
+    plain16_share = {n: 0.0 for n in names}
     repeats = 0  # shapes whose bf16 gradients two runs gave bitwise equal
     for name, b, s, t, kv, g, dh, causal, window, softcap, padded in TRAIN_SHAPES:
         kw = dict(softcap=softcap, window=window, causal=causal)
@@ -749,9 +842,14 @@ def phase_train_kernel_check(dev):
             got = [out.detach()] + [x.grad for x in leaves]
             del out, leaves
             # the kernels' two passes in plain versions (the plain forward,
-            # flash_attention_bwd_plain from its lse)
-            plain = flash_attn.flash_attention_plain_vjp(q, k, v, q_pos, kv_pos, cot,
-                                                         **plain_kw)
+            # flash_attention_bwd_plain from its lse), in f32 on the same
+            # inputs: a bf16 plain version rounds as it goes, by more than the
+            # bf16 tolerance at the twins' Dh 64 layers (plain16_share)
+            plain = flash_attn.flash_attention_plain_vjp(
+                *(x.float() for x in (q, k, v)), q_pos, kv_pos, cot.float(), **plain_kw)
+            plain16 = (flash_attn.flash_attention_plain_vjp(q, k, v, q_pos, kv_pos, cot,
+                                                            **plain_kw)
+                       if dtype != torch.float32 else ())
             torch.cuda.synchronize()
             for i, (a, p) in enumerate(zip(got, plain)):
                 kname = names[min(i, 2)]
@@ -764,7 +862,11 @@ def phase_train_kernel_check(dev):
                                          f"the tolerance (atol {atol}, rtol {rtol})")
                 worst[kname][dtype] = max(worst[kname][dtype],
                                           (a.float() - p.float()).abs().max().item())
-            del got, plain
+            for i, (p16, p) in enumerate(zip(plain16, plain)):
+                kname = names[min(i, 2)]
+                share = _excess(p16, p, *ATTN_TOL[dtype][min(i, 1)])
+                plain16_share[kname] = max(plain16_share[kname], share)
+            del got, plain, plain16
             if dtype == torch.bfloat16:
                 # the bf16 kernels against the plain version in f32 on the
                 # same inputs: each result rounded once from f32
@@ -794,12 +896,16 @@ def phase_train_kernel_check(dev):
                                              f"{share:.3f} of the half-ulp bound")
                     share_vs_f32[kname] = max(share_vs_f32[kname], share)
                 del out, grads, ref_out, ref_grads
+            if not padded:
+                CHECKED["flash_attention"].add(_train_sig(q, k, causal, window, softcap))
             torch.cuda.empty_cache()
     for kname in names:
-        log(f"kernel_check: {kname} vs plain at {', '.join(x[0] for x in TRAIN_SHAPES)}, "
+        log(f"kernel_check: {kname} vs plain in f32 at "
+            f"{', '.join(x[0] for x in TRAIN_SHAPES)}, "
             f"max_err_f32={worst[kname][torch.float32]:.3e} "
             f"max_err_bf16={worst[kname][torch.bfloat16]:.3e}; bf16 vs plain in f32 within "
-            f"{share_vs_f32[kname]:.3f} of the half-ulp bound")
+            f"{share_vs_f32[kname]:.3f} of the half-ulp bound; the bf16 plain version vs "
+            f"plain in f32 at {plain16_share[kname]:.3f} of the bf16 tolerance (not held)")
     log(f"kernel_check: dq, dk, dv bf16 bitwise equal over two runs at {repeats} of "
         f"{len(TRAIN_SHAPES)} shapes")
 
@@ -1444,16 +1550,13 @@ def phase_new_kernel_time(dev):
 
 
 def _wrench(cfg, seq, n_train, n_meta, seed):
-    """WRENCH-analog data at the model's vocabulary (benchmarks/common.py
-    wrench_task): majority-vote weak labels on train, clean meta labels."""
-    from repro_torch import data
+    """WRENCH-analog data at the model's vocabulary (``perf.common.
+    wrench_task``, after benchmarks/common.py): majority-vote weak labels on
+    train, clean meta labels."""
+    from repro_torch.perf.common import wrench_task
 
-    ccfg = data.ClassificationConfig(num_classes=cfg.num_labels, vocab_size=cfg.vocab_size,
-                                     seq_len=seq, seed=seed)
-    train = data.make_classification_dataset(ccfg, n_train, seed=seed)
-    train["y"] = data.weak_labels(train["y_true"], cfg.num_labels, num_lfs=5, lf_accuracy=0.5,
-                                  seed=seed + 1)
-    meta = data.make_classification_dataset(ccfg, n_meta, seed=seed + 2)
+    _, train, meta, _ = wrench_task(seed, n_train, n_meta, 0, num_classes=cfg.num_labels,
+                                    vocab_size=cfg.vocab_size, seq_len=seq)
     return train, meta
 
 
@@ -2247,6 +2350,7 @@ def phase_dataopt(cfg, dev, out_dir, n=4096, n_meta=512, n_test=512, seq=128, st
     del opt, theta
     torch.cuda.empty_cache()
     log("dataopt: " + json.dumps(out))
+    out["export_path"] = path
     return out
 
 
@@ -2901,14 +3005,253 @@ def phase_family(cfg, dev, out_dir, layers, tag):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: continued pretraining (the auxiliary spec), the score API and
+# the paper-bench twins
+# ---------------------------------------------------------------------------
+
+
+def _aux_want(cfg, unroll, leaves):
+    """Launches per meta step of the auxiliary spec: a base step runs the
+    model on the ft batch and on the pt batch, the meta pass once on the ft
+    batch, each central-difference pass on both: 2K + 5 forwards (each one
+    CE forward) and 2K + 1 backwards (each one CE backward and, under remat,
+    one recomputed forward); one adam_adapt per theta leaf."""
+    from repro_torch.kernels import flash_attn, weighted_ce as wce
+
+    L, K = _gqa_layers(cfg), unroll
+    fwd, bwd = 2 * K + 5, 2 * K + 1
+    return {flash_attn.FWD: L * fwd + L * bwd, flash_attn.DQ: L * bwd, flash_attn.DKV: L * bwd,
+            "adam_adapt": leaves, wce.FWD: fwd, wce.BWD: bwd}
+
+
+def _aux_learner(model, dev, unroll, base_opt):
+    """SAMA on ``make_auxiliary_spec(model.lm_loss, model.per_example)``:
+    the ft LM loss plus MetaWeightNet-weighted per-sequence pt losses at the
+    base level, the ft loss at the meta level; Adam 1e-3 at the meta level."""
+    from repro_torch import api
+    from repro_torch.core import problems
+
+    spec = problems.make_auxiliary_spec(model.lm_loss, model.per_example)
+    learner = api.MetaLearner(spec, base_opt=base_opt, meta_opt="adam", meta_lr=1e-3,
+                              method="sama", unroll_steps=unroll)
+    learner.init(model.init(SEED), problems.init_data_optimization_lam(SEED + 1, device=dev))
+    return learner
+
+
+def _aux_batches(cfg, dev, batch, seq, unroll, seed):
+    """(base_batches, meta_batch) of {"ft", "pt"} token batches: the K ft
+    batches are row permutations of the meta batch's sequences (warm Adam
+    rows, as _lm_warm_batches); the pt rows alternate the LM stream and
+    uniform ("harmful") tokens, as bench_cont_pretrain's auxiliary corpus."""
+    from repro_torch import data
+
+    rng = np.random.default_rng(seed)
+    lm_cfg = data.LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def batches(i):
+        ft = data.lm_batch(lm_cfg, rng, batch)["tokens"]
+        pt = data.lm_batch(lm_cfg, rng, unroll * batch)["tokens"].reshape(unroll, batch, seq)
+        pt[:, 1::2] = rng.integers(0, cfg.vocab_size, pt[:, 1::2].shape)
+        perms = np.stack([rng.permutation(batch) for _ in range(unroll)])
+        return ({"ft": {"tokens": put(ft[perms])}, "pt": {"tokens": put(pt)}},
+                {"ft": {"tokens": put(ft)}})
+
+    return batches
+
+
+def phase_cont_pretrain_f32(base_cfg, dev, batch=1, seq=1024, unroll=2, steps=3):
+    """20(a): gemma3-1b at full width and depth in f32 through the auxiliary
+    spec, ft batch 1 + pt batch 1, seq 1024, unroll 2, meta batch 1, base
+    Adam eps 1e-3 on warm rows: _held_steps (three step pairs, the kernels
+    against plain_everywhere from one state, phase 7's tolerances), the
+    kernel step's launches held to _aux_want."""
+    from repro_torch import optim, tree
+    from repro_torch.models import Model
+
+    cfg = base_cfg.replace(dtype="float32")
+    model = Model(cfg, device=dev)
+    batches = _aux_batches(cfg, dev, batch, seq, unroll, SEED + 200)
+    torch.cuda.reset_peak_memory_stats()
+    learner = _aux_learner(model, dev, unroll, optim.adam(1e-3, eps=1e-3))
+    want = _aux_want(cfg, unroll, len(tree.tree_leaves(learner.state.theta)))
+    _, out = _held_steps("cont_pretrain f32", learner, batches, steps, want)
+    out.update({"layers": cfg.num_layers, "batch_ft": batch, "batch_pt": batch, "seq": seq,
+                "unroll": unroll, "base_adam_eps": 1e-3, "launches_per_step": want,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del learner
+    torch.cuda.empty_cache()
+    log("cont_pretrain_f32: " + json.dumps(out))
+    return out
+
+
+def phase_cont_pretrain_bf16(cfg, dev, out_dir, batch=2, seq=1024, unroll=2, steps=10):
+    """20(b): gemma3-1b at full width and depth in its own dtypes (f32
+    parameters, bf16 activations) through the auxiliary spec: ft batch 2 +
+    pt batch 2 (the four sequences of phase 10's base batch), seq 1024,
+    unroll 2, meta batch 2; ``steps`` meta steps through MetaLearner.fit
+    (_timed_fit: wall median and range, tokens/s over K (B_ft + B_pt) S,
+    peak memory, launches held to _aux_want, a profiled step's device time
+    by phase and kernel)."""
+    from repro_torch import optim, tree
+    from repro_torch.models import Model
+
+    model = Model(cfg, device=dev)
+    learner = _aux_learner(model, dev, unroll, optim.adam(1e-3))
+    make = _aux_batches(cfg, dev, batch, seq, unroll, SEED + 210)
+
+    def it():
+        i = 0
+        while True:
+            yield make(i)
+            i += 1
+
+    want = _aux_want(cfg, unroll, len(tree.tree_leaves(learner.state.theta)))
+    result = _timed_fit("cont_pretrain_bf16", learner, it(), steps, want, out_dir,
+                        "cont_pretrain_step",
+                        {"samples": 2 * batch * unroll, "tokens": 2 * batch * unroll * seq})
+    result.update({"layers": cfg.num_layers, "batch_ft": batch, "batch_pt": batch,
+                   "seq": seq, "unroll": unroll, "meta_batch": batch})
+    del learner
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_score_api(path, n_requests=600, ids_per_request=16, seed=SEED + 220):
+    """20(c): ``serve.ScoreAPI`` over phase 16's exported store: requests of
+    the three kinds (weights at temperatures 0.5, 1, 4), all submitted,
+    then coalesced 64 at a time by one ``run_pending``, each answer equal
+    to a direct ``ScoreStore`` lookup. The service numbers are the drain's:
+    requests/s and host µs per coalesced batch. The API's own p50/p99 run
+    from a request's submission to its answer, so here they are the wait
+    in the queue behind the whole submit loop, not the time to serve one
+    request."""
+    from repro_torch import serve
+
+    store = serve.ScoreStore.load(path, expect_n=4096)
+    api = serve.ScoreAPI(store, max_batch=64, queue_depth=n_requests)
+    rng = np.random.default_rng(seed)
+    asks = [(serve.score_api.KINDS[i % 3], (0.5, 1.0, 4.0)[(i // 3) % 3],
+             rng.integers(0, len(store), ids_per_request)) for i in range(n_requests)]
+    t0 = time.perf_counter()
+    futs = [api.submit(ids, kind=kind, temperature=temp) for kind, temp, ids in asks]
+    t1 = time.perf_counter()
+    answered = api.run_pending()
+    secs = time.perf_counter() - t1
+    for (kind, temp, ids), fut in zip(asks, futs):
+        want = {"score": lambda: store.lookup(ids), "keep": lambda: store.keep(ids),
+                "weight": lambda: store.weight(ids, temp)}[kind]()
+        if not np.array_equal(fut.result(), want):
+            raise AssertionError(f"score_api: a {kind} answer differs from the store's")
+    stats = api.stats()
+    out = {"rows": len(store), "requests": n_requests, "ids_per_request": ids_per_request,
+           "answered": answered, "batches": stats.batches, "submit_loop_us": (t1 - t0) * 1e6,
+           "drain_requests_per_s": answered / secs,
+           "drain_us_per_batch": secs * 1e6 / max(stats.batches, 1),
+           "submit_to_answer_p50_us": stats.latency.p50_us,
+           "submit_to_answer_p99_us": stats.latency.p99_us,
+           "shed": [stats.queue.shed_overflow, stats.queue.shed_deadline],
+           "scorer": store.meta.get("scorer")}
+    if answered != n_requests or stats.batches < math.ceil(n_requests / 64):
+        raise AssertionError(f"score_api: {out}")
+    log("score_api: " + json.dumps(out))
+    return out
+
+
+#: the paper-bench twins (``repro_torch.perf.bench_*``) and the kernels each
+#: must launch on the card
+_TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+                  "adam_adapt")
+TWINS = {
+    "cont_pretrain": _TRAIN_KERNELS,
+    "wrench": _TRAIN_KERNELS,
+    "ablation": _TRAIN_KERNELS,
+    "memory_vs_modelsize": _TRAIN_KERNELS,
+    "data_pruning": _TRAIN_KERNELS,
+    "biased_regression": (),
+    "serve": ("flash_decode",),
+}
+
+
+@contextlib.contextmanager
+def _attn_signatures():
+    """Yields {"flash_attention": set, "flash_decode": set}, filled inside
+    with the signatures (_train_sig, _decode_sig) of every launch of the
+    attention kernels: it wraps their CUDA entry points, through which
+    every launch goes (a backward follows its forward's signature)."""
+    from repro_torch.kernels import flash_attn
+
+    seen = {"flash_attention": set(), "flash_decode": set()}
+    fwd, dec = flash_attn._fwd_cuda, flash_attn._flash_decode_cuda
+
+    def fwd_seen(q, k, v, q_pos, kv_pos, *, softcap, window, causal):
+        seen["flash_attention"].add(_train_sig(q, k, causal, window, softcap))
+        return fwd(q, k, v, q_pos, kv_pos, softcap=softcap, window=window, causal=causal)
+
+    def dec_seen(q, k, v, q_pos, local_flag, *, softcap, window, n_splits):
+        seen["flash_decode"].add(_decode_sig(q, k, local_flag is not None and bool(local_flag),
+                                             window, softcap))
+        return dec(q, k, v, q_pos, local_flag, softcap=softcap, window=window,
+                   n_splits=n_splits)
+
+    flash_attn._fwd_cuda, flash_attn._flash_decode_cuda = fwd_seen, dec_seen
+    try:
+        yield seen
+    finally:
+        flash_attn._fwd_cuda, flash_attn._flash_decode_cuda = fwd, dec
+
+
+def phase_paper_benches(out_dir):
+    """20(d): every twin at its JAX ``fast`` sizes on the card, its
+    ``BENCH_torch_<name>.json`` in DIR/paper_benches; per twin one line with
+    its rows, claims, seconds and the kernel launches of its run (counted
+    from 0 just before it), each kernel of TWINS launched at least once, and
+    every signature at which it launched the attention kernels one that
+    phases 3 and 4 held against the plain versions (CHECKED)."""
+    import importlib
+
+    from repro_torch.kernels import dispatch
+
+    out_dir = os.path.join(out_dir, "paper_benches")
+    out = {}
+    for name, kernels in TWINS.items():
+        mod = importlib.import_module(f"repro_torch.perf.bench_{name}")
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with _attn_signatures() as seen:
+            bench = mod.run(fast=True, device="cuda")
+        secs = time.perf_counter() - t0
+        launches = dispatch.launch_counts()
+        for kernel, sigs in seen.items():
+            unchecked = sorted(map(str, sigs - CHECKED[kernel]))
+            if unchecked:
+                raise AssertionError(f"bench_{name}: {kernel} launched at signatures no "
+                                     f"check held against the plain version: {unchecked}")
+        path = bench.write(out_dir, fast=True, elapsed_s=secs)
+        torch.cuda.empty_cache()
+        line = {"bench": name, "seconds": secs, "rows": bench.rows, "claims": bench.claims,
+                "launches": launches, "attention_signatures_checked":
+                    {k: len(v) for k, v in seen.items()},
+                "file": os.path.relpath(path, out_dir)}
+        log(f"paper_bench_{name}: " + json.dumps(line))
+        missing = [k for k in kernels if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"bench_{name}: no launch of {missing} on the card")
+        out[name] = line
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
-                    help="directory for the profiler traces of a decode and two training "
-                         "steps, the Table 2 and scale bench files and phase 16's score "
-                         "export")
+                    help="directory for the profiler traces of a decode and the training "
+                         "steps, the Table 2, scale and paper-bench files and phase 16's "
+                         "score export")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -3039,7 +3382,7 @@ def main():
     timed("scale_plan", phase_scale_plan, cfg, dev, peaks, meta_batch=mem["meta_batch"])
     f16_out = timed("scale_f16", phase_scale_f16, cfg, dev)
     torch.cuda.empty_cache()
-    timed("dataopt", phase_dataopt, bert, dev, args.out)
+    dataopt_out = timed("dataopt", phase_dataopt, bert, dev, args.out)
     torch.cuda.empty_cache()
 
     # phase 17: the distributed schedules (NCCL world 1, two gloo ranks)
@@ -3062,6 +3405,22 @@ def main():
         for tag, out in fam.items():
             if name in out["train_bf16"]["launches"]:
                 e[f"launches_{tag}_train_bf16"] = out["train_bf16"]["launches"][name]
+
+    # phase 20: continued pretraining through the auxiliary spec at full
+    # width (f32 pairs, bf16 timed steps), the score API over phase 16's
+    # export, and the paper-bench twins
+    timed("cont_pretrain_f32", phase_cont_pretrain_f32, cfg, dev)
+    torch.cuda.empty_cache()
+    cp_out = timed("cont_pretrain_bf16", phase_cont_pretrain_bf16, cfg, dev, args.out)
+    torch.cuda.empty_cache()
+    timed("score_api", phase_score_api, dataopt_out["export_path"])
+    twins = timed("paper_benches", phase_paper_benches, args.out)
+    entry["launches_bench_serve"] = twins["serve"]["launches"]["flash_decode"]
+    for name, e in by_name.items():
+        if name in cp_out["launches"]:
+            e["launches_cont_pretrain_bf16"] = cp_out["launches"][name]
+        e["launches_paper_benches"] = {t: out["launches"].get(name, 0)
+                                       for t, out in twins.items()}
 
     # launches: each kernel's count from this slice's main path (the gemma3-1b
     # bf16 run) where it runs there, else from the run that drives it (the

@@ -1,9 +1,11 @@
 """Builders of BilevelSpecs for the paper's data-optimization applications
 (Sec. 4), after ``src/repro/core/problems.py``:
 
-``make_data_optimization_spec``: noisy-data reweighting (+ optional label
-correction), Sec. 4.1 / data pruning Sec. 4.3 (uncertainty feature). The
-auxiliary-loss spec of Sec. 4.2 comes with the continued-pretraining path.
+* ``make_data_optimization_spec``: noisy-data reweighting (+ optional
+  label correction), Sec. 4.1 / data pruning Sec. 4.3 (uncertainty
+  feature);
+* ``make_auxiliary_spec``: continued-pretraining auxiliary-loss
+  reweighting (TARTAN-style multitask), Sec. 4.2.
 
 They are model-agnostic: the caller supplies a ``per_example_fn`` mapping
 (theta, batch) to per-sample quantities.
@@ -102,6 +104,31 @@ def make_data_optimization_spec(
         del lam  # the meta loss is plain risk on clean/meta data
         pe = per_example_fn(theta, batch)
         return torch.mean(pe.loss)
+
+    return BilevelSpec(base_loss=base_loss, meta_loss=meta_loss)
+
+
+def make_auxiliary_spec(
+    ft_loss_fn: Callable[[Tree, Any], torch.Tensor],  # (theta, batch) -> scalar
+    pt_per_example_fn: PerExampleFn,
+    *,
+    use_uncertainty: bool = False,
+) -> BilevelSpec:
+    """Sec. 4.2: one-stage multitask continued pretraining
+    base = L_ft + mean_i w(x_i; lam) * L_pt,i ;  meta = L_ft.
+    A batch is ``{"ft": ..., "pt": ...}``; the meta batch needs only
+    ``"ft"``."""
+
+    def base_loss(theta, lam, batch):
+        ft = ft_loss_fn(theta, batch["ft"])
+        pe = pt_per_example_fn(theta, batch["pt"])
+        feats = mm.weight_features(pe.loss, pe.uncertainty if use_uncertainty else None)
+        w = mm.apply_weight_net(lam["reweight"], feats)
+        return ft + torch.mean(w * pe.loss)
+
+    def meta_loss(theta, lam, batch):
+        del lam
+        return ft_loss_fn(theta, batch["ft"])
 
     return BilevelSpec(base_loss=base_loss, meta_loss=meta_loss)
 

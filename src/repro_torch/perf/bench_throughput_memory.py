@@ -43,21 +43,6 @@ METHODS = ("sama", "sama_na", "t1t2", "neumann", "cg", "iterdiff")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def wrench_task(cfg, seq: int, n_train: int, n_meta: int, seed: int):
-    """WRENCH-analog data at the model's vocabulary (``benchmarks/common.py``
-    ``wrench_task``): majority-vote weak labels (LF accuracy 0.5) on train,
-    clean labels on meta."""
-    from repro_torch import data
-
-    ccfg = data.ClassificationConfig(num_classes=cfg.num_labels, vocab_size=cfg.vocab_size,
-                                     seq_len=seq, seed=seed)
-    train = data.make_classification_dataset(ccfg, n_train, seed=seed)
-    train["y"] = data.weak_labels(train["y_true"], cfg.num_labels, num_lfs=5, lf_accuracy=0.5,
-                                  seed=seed + 1)
-    meta = data.make_classification_dataset(ccfg, n_meta, seed=seed + 2)
-    return train, meta
-
-
 def profiled_device_ms(fn, trace_path: str):
     """Run ``fn()`` once under ``torch.profiler`` on the card, tracing the
     card's activity only (the host's ops would multiply the trace). Returns
@@ -136,11 +121,13 @@ def run(cfg=None, *, batch: int = 48, seq: int = 128, unroll: int = 2, warmup: i
     from repro_torch.core.engine import packed_read
     from repro_torch.kernels import dispatch
     from repro_torch.models import Model
+    from repro_torch.perf.common import wrench_task
 
     cfg = cfg or configs.get_config("bert-base")
     model = Model(cfg, device=device)
     on_card = model.device.type == "cuda"
-    train, meta = wrench_task(cfg, seq, 1024, 256, seed + 1)
+    _, train, meta, _ = wrench_task(seed + 1, 1024, 256, 0, num_classes=cfg.num_labels,
+                                    vocab_size=cfg.vocab_size, seq_len=seq)
     it = data.BatchIterator(train, meta, batch_size=batch, meta_batch_size=batch,
                             unroll=unroll, seed=seed, device=model.device)
     base_b, meta_b = next(it)

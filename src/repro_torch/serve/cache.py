@@ -215,7 +215,9 @@ class PagedCache:
         self._capacity = cap
         self._free_pages: List[int] = list(range(cap - 1, 0, -1))  # pop() -> low ids first
         self._free_slots: List[int] = list(range(slots - 1, -1, -1))
-        self.table = np.zeros((slots, self.pages_per_seq), np.int64)
+        # int32 as in the reference, whose allocated_bytes counts it; the
+        # views index the pools with it widened to int64
+        self.table = np.zeros((slots, self.pages_per_seq), np.int32)
         self.seq_lens = np.zeros((slots,), np.int64)
         self.active = np.zeros((slots,), bool)
         self._pages_held = np.zeros((slots,), np.int64)
@@ -312,7 +314,7 @@ class PagedCache:
         nv = view_len // self.page_size
         if nv > self.pages_per_seq:
             raise ValueError(f"view_len {view_len} > max_len={self.max_len}")
-        return torch.as_tensor(self.table[:, :nv]).to(self.device)
+        return torch.as_tensor(self.table[:, :nv]).to(self.device, torch.int64)
 
     def write_prefill(self, slot: int, dense_cache: Tree, n_tokens: int) -> None:
         """Commit a B=1 prefill cache (``n_tokens`` valid, padded to a page
@@ -321,7 +323,7 @@ class PagedCache:
         n_pages = math.ceil(n_tokens / self.page_size)
         self.reserve(slot, n_tokens)
         leaves = cm.tree_flatten(dense_cache)[0]
-        pages = torch.as_tensor(self.table[slot, :n_pages]).to(self.device)
+        pages = torch.as_tensor(self.table[slot, :n_pages]).to(self.device, torch.int64)
         for pool, leaf, ls in zip(self.pools, leaves, self.spec.leaves):
             v = _bt_first(leaf, ls)[0, : n_pages * self.page_size]
             v = v.reshape(n_pages, self.page_size, *v.shape[1:])

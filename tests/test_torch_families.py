@@ -224,6 +224,79 @@ def test_continuous_batched_matches_serial_and_jax(arch):
     assert stats.completed == len(lens) and stats.errors == 0
 
 
+def test_reference_padded_prefill_departs_where_padding_drops_a_prompt_choice(monkeypatch):
+    """ROADMAP queue 3, a fault of the reference pinned here: the JAX
+    package's ``ContinuousBatcher.admit`` right-pads the prompt to a page
+    multiple (``src/repro/serve/batcher.py:197-206``), and a MoE layer routes
+    the padding with the prompt. ``capacity = max(int(cf K G / E), 4)`` is
+    then taken at the padded length and the padding's first choices take
+    capacity slots ahead of the prompt's second choices (choice-major
+    positions), so the padded prefill drops prompt choices that the serial
+    path keeps. The port prefills the P prompt tokens unpadded.
+
+    qwen2-moe SMOKE (E 4, K 2, cf 1.25), P 5 at page 8 (capacity 5 padded,
+    4 unpadded): the padded routing drops two of the prompt's choices that
+    the unpadded routing keeps (the port's ``moe.route``, which equals the
+    reference's, tests/test_torch_moe.py). The first-token logits of JAX's
+    executor part from JAX's ``greedy_generate`` by more than 0.1; the
+    port's executor, the port's ``greedy_generate`` and JAX's agree within
+    1e-4, and so do their tokens. With random weights the last prompt
+    token's own embedding sets each argmax, so no served token flips here:
+    JAX's executor serves the same tokens from other logits."""
+    from repro.serve import prefill as jprefill
+    from repro_torch.models import moe
+    from repro_torch.serve import prefill as tprefill
+
+    jm, jparams, tm, tparams = _pair("qwen2-moe-a2.7b")
+    P, page, gen = 5, 8, 6
+    prompt = _tokens(tm.cfg, (P,), 31)
+    assert (moe.moe_capacity(tm.cfg, page), moe.moe_capacity(tm.cfg, P)) == (5, 4)
+
+    keeps, route = [], moe.route
+
+    def recording(cfg, probs, capacity):
+        out = route(cfg, probs, capacity)
+        keeps.append(out[1][0, :, :P])
+        return out
+
+    padded = np.zeros(page, np.int32)
+    padded[:P] = prompt
+    with monkeypatch.context() as m:
+        m.setattr(moe, "route", recording)
+        for toks in (prompt, padded):
+            tm.forward(tparams, {"tokens": torch.from_numpy(toks[None])})
+    unpadded_keep, padded_keep = keeps[:2], keeps[2:]
+    assert sum(int((a & ~b).sum()) for a, b in zip(unpadded_keep, padded_keep)) == 2
+
+    lasts = []
+    for mod in (jprefill, tprefill):
+        real = mod.chunked_prefill
+
+        def recorded(*args, _real=real, **kw):
+            last, cache = _real(*args, **kw)
+            lasts.append(np.asarray(last, np.float32).copy())
+            return last, cache
+
+        monkeypatch.setattr(mod, "chunked_prefill", recorded)
+    scfg = dict(slots=2, page_size=page, max_len=32, max_new_tokens=gen)
+    t_serial = serve.greedy_generate(tm, tparams, torch.from_numpy(prompt[None]), gen,
+                                     32)[0].tolist()
+    ex = serve.ServeExecutor(tm, tparams, serve.ServeConfig(**scfg))
+    rid = ex.submit(prompt, max_new_tokens=gen)
+    ex.run()
+    j_serial = [int(t) for t in jserve.greedy_generate(jm, jparams, jnp.asarray(prompt[None]),
+                                                        gen, 32)[0]]
+    jex = jserve.ServeExecutor(jm, jparams, jserve.ServeConfig(**scfg))
+    jid = jex.submit(prompt, max_new_tokens=gen)
+    jex.run()
+    t_serial_last, t_exec_last, j_serial_last, j_exec_last = lasts
+    np.testing.assert_allclose(t_exec_last, t_serial_last, **TOL)
+    np.testing.assert_allclose(t_serial_last, j_serial_last, **TOL)
+    assert np.max(np.abs(j_exec_last - j_serial_last)) > 0.1
+    assert ex.results[rid].tokens == t_serial == j_serial
+    assert jex.results[jid].tokens == j_serial
+
+
 def test_paged_cache_pages_the_mla_and_moe_leaves():
     """build_spec finds one batch and one time axis in MLA's 3-D ckv and
     krope leaves and in both stacks of kimi-k2's cache."""

@@ -52,6 +52,11 @@ def test_package_imports_with_jax_unavailable():
             "import repro_torch.launch.train, repro_torch.optim\n"
             "import repro_torch.checkpoint, repro_torch.core.baselines\n"
             "import repro_torch.perf.bench_throughput_memory, repro_torch.perf.gate\n"
+            "import repro_torch.perf.bench_cont_pretrain, repro_torch.perf.bench_wrench\n"
+            "import repro_torch.perf.bench_ablation, repro_torch.perf.bench_serve\n"
+            "import repro_torch.perf.bench_memory_vs_modelsize\n"
+            "import repro_torch.perf.bench_data_pruning, repro_torch.perf.bench_biased_regression\n"
+            "from repro_torch.serve import ScoreAPI, ScoreStore\n"
             "from repro_torch.models import Model\n"
             "from repro_torch import configs\n"
             "m = Model(configs.get_smoke_config('gemma3-1b'), device='cpu')\n"

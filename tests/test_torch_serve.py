@@ -140,6 +140,27 @@ def test_paged_allocation_below_dense(smoke):
     assert pc.allocated_bytes() < dense and pc.peak_bytes < dense
 
 
+def test_executor_memory_stats_match_jax(smoke):
+    """The continuous-batching run's cache accounting (``ServeStats.
+    memory``: allocated and peak bytes, growth events, buckets) equals the
+    JAX executor's on the same requests: the pools and the int32 page
+    table, as ``benchmarks/bench_serve.py``'s ``serve_paged_memory`` row
+    reads them."""
+    jm, jparams, tm, tparams = smoke
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tm.cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in rng.integers(4, 17, size=8)]
+    scfg = dict(slots=8, page_size=4, max_len=32, max_new_tokens=8)
+    stats = []
+    for pkg, model, params in ((serve, tm, tparams), (jserve, jm, jparams)):
+        ex = pkg.ServeExecutor(model, params, pkg.ServeConfig(**scfg))
+        for p in prompts:
+            ex.submit(p, max_new_tokens=8)
+        stats.append(ex.run().memory)
+    assert stats[0] == stats[1]
+    assert stats[0]["peak_bytes"] < serve.dense_cache_bytes(tm, 8, 32, torch.float32)
+
+
 def test_gather_scatter_round_trip(smoke):
     """A token scattered into its page reads back through the gathered
     view at its position; inactive lanes write only the trash page."""
