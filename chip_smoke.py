@@ -19,8 +19,11 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    the card at gemma3-1b shapes (B in {1, 4, 8}, KV=1, G=4, Dh=256, T in
    {16, 128, 1024, 2048}, window on and off, softcap 0 and 50, cluster
    sizes (splits) 1, 3, 7 and the plan's), at qwen2-moe-a2.7b's layer
-   (B 1 and 4, T 1024, KV 16, G 1, Dh 128; splits 1, 4 and the plan's)
-   and at the serving twin's (gemma3-1b smoke: B 1 and 8, T 16 and 32, KV
+   (B 1 and 4, T 1024, KV 16, G 1, Dh 128; splits 1, 4 and the plan's),
+   at zamba2-7b's shared attention block (B 1 and 4, T 64, 128 and 1024:
+   phase 21's cache lengths and the timed bucket; KV 32, G 1, Dh 112;
+   splits 1 and the plan's; against the plain version in f32, the bf16
+   plain version's own distance printed) and at the serving twin's (gemma3-1b smoke: B 1 and 8, T 16 and 32, KV
    1, G 2, Dh 64, window 8 on and off; splits 1, 2 and the plan's),
    f32 within 1e-5 and bf16 within
    2e-2 abs, and the 2-byte dtypes within half an ulp (+1e-5) of the plain
@@ -28,13 +31,16 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    (``scaled_dot_product_attention``) times over one pass of 26 layers at
    the serving shape, and per local and global layer at buckets 256, 512
    and 1024 (bf16) and 1024 (f32), with the 1024 bucket under cluster
-   sizes 4, 8 and 16, and per qwen2-moe-a2.7b layer at bucket 1024 (bf16).
+   sizes 4, 8 and 16, and per qwen2-moe-a2.7b and zamba2-7b layer at
+   bucket 1024 (bf16).
 4. training kernels: the flash-attention forward and its dq and dk/dv
    backward kernels through autograd, at bert-base's shape, at a
    gemma-like one (G 4, KV 1, Dh 256, window, softcap, causal, ragged S
    and T), at gemma3-1b's full local and global layers (B 4, S = T 1024),
    with whole key and query tiles of padding, at qwen2-moe-a2.7b's layer
-   (B 4, S = T 1024, KV 16, G 1, Dh 128, causal) and at the paper-bench
+   (B 4, S = T 1024, KV 16, G 1, Dh 128, causal), at zamba2-7b's shared
+   block (B 4 and 2, S = T 1024, KV 32, G 1, Dh 112, causal, and ragged S
+   300, T 333 at KV 4) and at the paper-bench
    twins' layers (S = T 32, Dh 64: mini-BERT's non-causal H 2, 4, 6 at G 1
    and gemma3-1b smoke's causal G 2 over KV 1, window 8 and none, at each
    batch the twins give them), f32 (1e-5 forward, 5e-5
@@ -51,7 +57,8 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    depth 2, 346,030,080 (rtol 1e-5, sum of squares 1e-4);
    ``weighted_ce`` forward and backward at gemma3-1b's LM loss (the (4,
    1023, 262144) logits view, R 4,092), at R 37, V 5,000 and at the LM
-   losses of qwen2-moe-a2.7b (V 151,936) and minicpm3-4b (V 73,448), f32,
+   losses of qwen2-moe-a2.7b (V 151,936), minicpm3-4b (V 73,448),
+   rwkv6-1.6b (V 65,536) and zamba2-7b (V 32,000), f32,
    bf16 and f16 logits (ce and lse within 1e-5 (1 + |ref|); dlogits within
    1e-6 + 1e-5 |ref| of the plain version in f32, plus half an ulp of the
    dtype for bf16 and f16);
@@ -61,11 +68,15 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    S 128, bf16; the CE also with bf16 and f16 logits at the same shape,
    the f16 instantiation beside the bf16; the attention kernels also per
    gemma3-1b global and local
-   layer over one pass of its 26 layers and per qwen2-moe-a2.7b layer over
-   its 24, with SDPA's time under each
+   layer over 12 layers in its pattern (10 local, 2 global), per
+   qwen2-moe-a2.7b layer over 6 of its 24 and per use of zamba2-7b's
+   shared block over 6 of its 13 (each layer its own inputs; cut from the
+   whole models for the run's time limit), with SDPA's
+   time under each
    backend that takes the layer (the median of five timings, their range
    beside it) and the tiles the bf16 kernels visit; the
-   CE at gemma3-1b's, qwen2-moe's and minicpm3's shapes in f32; the
+   CE at gemma3-1b's, qwen2-moe's, minicpm3's, rwkv6's and zamba2's
+   shapes in f32; the
    adaptation products at 23.4 M
    elements, ``adam_adapt`` also at the 346 M expert stack) beside its
    plain version's, the library call's and the
@@ -167,7 +178,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
 18. moe: qwen2-moe-a2.7b (60 routed experts top-4 and 4 shared, 14.0 B
    parameters). (a) Serving in f32 at full width and depth, random weights
    from a seed, 8 requests of 300-900 tokens, tokens equal to the serial
-   ``greedy_generate``; (b) bf16 serving as phase 6 (qps, TTFT, TPOT, peak
+   ``greedy_generate``; (b) bf16 serving as phase 6, 8 requests (qps, TTFT, TPOT, peak
    memory, ``flash_decode`` launches = 24 x decode steps, a profiled decode
    step); (c) f32 training at full width and depth 2 (1.45 B parameters:
    the step's f32 parameter-sized trees at full depth pass 80 GB), batch
@@ -179,7 +190,9 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    steps as phase 10, the profiled step's device time also within the
    ``apply_moe`` ranges (the MoE layers' forward).
 19. mla: minicpm3-4b (multi-head latent attention, 62 layers, 4.07 B
-   parameters), as phase 18 with training at depth 16 (1.19 B): its
+   parameters), as phase 18 with training at depth 4 (0.56 B; cut from
+   16, as phase 18's bf16 requests from 16 to 8, for the run's time
+   limit): its
    decode and training attention are plain ops in both packages, so no
    ``flash_decode`` or flash attention kernel launches (held at 0); the
    CE and ``adam_adapt`` launches are held.
@@ -206,6 +219,24 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    attention kernels (B, S, T, KV, G, Dh, causal, window, softcap, dtype)
    one that phases 3 and 4 held against the plain versions;
    ``bench_serve``'s three asserts hold.
+21. the recurrent families, as phases 18-19: (a-d) rwkv6-1.6b (RWKV6,
+   24 layers, 1.45 B parameters, V 65,536: no attention, its cache all
+   state) and (e-h) zamba2-7b (81 Mamba2 blocks, 13 uses of one shared
+   attention block, 6.64 B parameters, V 32,000). Each served at full
+   size in f32 (8 requests of 32-40 prompt tokens on 4 slots, so slots
+   retire and are prefilled again, 8 generated, page 64, max_len 128;
+   tokens equal to the serial path) and in bf16 (8 requests), prefill the
+   token scan (one decode step per prompt token, flash_decode held to
+   zamba2's 13 uses per decode step and per prompt token); trained at full
+   width: two f32 step pairs, rwkv6 at depth 12 of 24 (0.79 B) and zamba2
+   at 9 (3 leading blocks and one group of 6 with the shared block,
+   1.02 B), held at phase 7's tolerances; for rwkv6 (chaotic at rounding
+   level at its init) each quantity at the larger of those and 1.5 times
+   the spread of three plain steps from theta moved by one ulp; the
+   launches held to the formula (no attention kernel for rwkv6, the shared
+   block's uses for zamba2); 10 bf16 steps at batch 4, seq 1024, rwkv6 at
+   its full 24 layers, zamba2 at 9. Every attention-kernel launch of the
+   phase at a signature phases 3 and 4 held.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. The weights and data are random, from seeds; nothing is downloaded.
@@ -357,6 +388,12 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
+#: the cache lengths at which phase 21 serves zamba2-7b (page 64, max_len
+#: 128: buckets 64 and 128, prompts prefilled into 64 rows) and the timed
+#: bucket, 1024
+ZAMBA_DECODE_T = (64, 128, 1024)
+
+
 def _decode_inputs(rng, b, t, dtype, dev, kv=1, g=4, dh=256):
     def mk(shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
@@ -474,6 +511,39 @@ def phase_kernel_check(dev):
                         f"qwen2-moe B={b} n_splits={n_splits}"))
                 n += 1
             CHECKED["flash_decode"].add(_decode_sig(q, k, False, 0, 0.0))
+    # zamba2-7b's shared attention block (H 32 over KV 32, G 1, Dh 112: 16
+    # zero-filled columns in the 128-wide tile, no window or softcap) at the
+    # batches and cache lengths phase 21 serves it at (ZAMBA_DECODE_T),
+    # against the plain version in f32 on the same inputs, as phase 4 holds
+    # the bf16 training kernels: the bf16 plain version rounds the scores
+    # and probabilities as it goes, and its own distance from the f32 one
+    # is printed, not held
+    plain16_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 4):
+            for t in ZAMBA_DECODE_T:
+                q, k, v = _decode_inputs(rng, b, t, dtype, dev, kv=32, g=1, dh=112)
+                pos = torch.from_numpy(_positions(rng, b, t).astype(np.int32)).to(dev)[:, None]
+                plain = flash_attn.flash_decode(q.float(), k.float(), v.float(), pos, False,
+                                                backend="plain")
+                if dtype != torch.float32:
+                    plain16 = flash_attn.flash_decode(q, k, v, pos, False, backend="plain")
+                    plain16_err = max(plain16_err,
+                                      (plain16.float() - plain).abs().max().item())
+                for n_splits in (1, None):
+                    got = flash_attn.flash_decode(q, k, v, pos, False, n_splits=n_splits)
+                    err = (got.float() - plain).abs().max().item()
+                    if not err <= TOL[dtype]:
+                        raise AssertionError(f"flash_decode vs plain in f32: err {err:.3e} at "
+                                             f"the zamba2-7b layer B={b} T={t} {dtype} "
+                                             f"n_splits={n_splits}")
+                    worst[dtype] = max(worst[dtype], err)
+                    if dtype != torch.float32:
+                        worst_vs_f32 = max(worst_vs_f32, _vs_f32(
+                            flash_attn, got, q, k, v, pos, False, {},
+                            f"zamba2-7b B={b} T={t} n_splits={n_splits}"))
+                    n += 1
+                CHECKED["flash_decode"].add(_decode_sig(q, k, False, 0, 0.0))
     # the serving twin's decode layers (perf/bench_serve.py: gemma3-1b smoke,
     # H 2 over KV 1, G 2, Dh 64, window 8 on the local layer, no softcap) at
     # its batches and bucketed cache lengths
@@ -512,6 +582,8 @@ def phase_kernel_check(dev):
                                      f"decode_shares at (pos, T, window, cluster)={args}")
             n_shares += 1
     log(f"kernel_check: flash_decode block shares equal decode_shares in {n_shares} cases")
+    log(f"kernel_check: flash_decode at the zamba2-7b layer held against the plain version "
+        f"in f32; the bf16 plain version's own max |err| from it {plain16_err:.3e} (not held)")
     log(f"kernel_check: flash_decode vs plain, {n} cases, max_err_f32="
         f"{worst[torch.float32]:.3e} (tol 1e-5), max_err_bf16="
         f"{worst[torch.bfloat16]:.3e} (tol 2e-2); 2-byte dtypes vs plain in f32 "
@@ -569,14 +641,17 @@ def phase_kernel_time(dev, cfg, slots, t):
     return out
 
 
-def phase_qwen_decode_time(dev, cfg, slots=4, t=1024):
-    """flash_decode per qwen2-moe-a2.7b layer (H 16 over KV 16, G 1, Dh
-    128) at bucket ``t``, bf16, beside the plain version, SDPA and the
+def phase_family_decode_time(dev, cfg, slots=4, t=1024, layers=None):
+    """flash_decode per layer of a model whose layers are all global
+    (qwen2-moe-a2.7b: H 16 over KV 16, G 1, Dh 128, over 26 layers;
+    zamba2-7b: H 32 over KV 32, G 1, Dh 112, over its shared block's 13
+    uses) at bucket ``t``, bf16, beside the plain version, SDPA and the
     bound (``decode_time.time_case``); one launch per call."""
     from repro_torch.kernels import flash_attn
     from repro_torch.perf import decode_time
 
-    out = decode_time.time_case(flash_attn, cfg, dev, "global", t, torch.bfloat16, slots=slots,
+    kinds = "global" if layers is None else ["global"] * layers
+    out = decode_time.time_case(flash_attn, cfg, dev, kinds, t, torch.bfloat16, slots=slots,
                                 seed=SEED + 6)
     out["cluster"] = flash_attn.decode_cluster(
         t, slots * cfg.num_kv_heads,
@@ -604,8 +679,13 @@ def _requests(cfg, n, lo, hi, seed):
 
 
 def _serve(model, params, prompts, gen, scfg):
+    """The executor over ``prompts``; every request ``ok`` with ``gen``
+    tokens in the vocabulary, and the flash_decode launches held to one per
+    attention layer per decode step and, where prefill is the token scan
+    (the recurrent families), per prompt token."""
     from repro_torch import serve
     from repro_torch.kernels import dispatch
+    from repro_torch.serve import prefill
 
     ex = serve.ServeExecutor(model, params, scfg)
     ids = [ex.submit(p, max_new_tokens=gen) for p in prompts]
@@ -623,27 +703,44 @@ def _serve(model, params, prompts, gen, scfg):
         toks = ex.results[i].tokens
         if len(toks) != gen or not all(0 <= x < model.cfg.vocab_size for x in toks):
             raise AssertionError(f"request {i}: {len(toks)} tokens, expected {gen} in vocab")
-    if launches != _gqa_layers(model.cfg) * stats.steps:
+    scanned = (sum(len(p) for p in prompts)
+               if prefill.default_mode(model.cfg) == "scan" else 0)
+    if launches != _gqa_layers(model.cfg) * (stats.steps + scanned):
         raise AssertionError(f"flash_decode launches {launches} != {_gqa_layers(model.cfg)} "
-                             f"GQA layers x {stats.steps} decode steps")
+                             f"GQA layers x ({stats.steps} decode steps + {scanned} scanned "
+                             "prompt tokens)")
     return ex, ids, stats, launches, wall
 
 
 def _gqa_layers(cfg):
-    """Layers whose decode attention is the flash_decode kernel: every
-    layer but MLA's (plain ops in both packages)."""
-    return 0 if cfg.use_mla else cfg.num_layers
+    """Attention layers (uses of one, for zamba2's shared block) whose
+    decode is the flash_decode kernel and whose training attention is the
+    flash kernels: every layer but MLA's (plain ops in both packages); none
+    in rwkv6; zamba2's n_groups applications of its shared block."""
+    if cfg.family == "ssm" or cfg.use_mla:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every
+    return cfg.num_layers
 
 
-def phase_serve_f32(base_cfg, params, dev, tag="serve_f32"):
+#: phase 5's requests: (count, shortest, longest prompt, gen, page, max_len)
+SERVE_F32 = (8, 300, 900, 16, 16, 1024)
+#: phase 6's
+SERVE_BF16 = (16, 256, 960, 32, 16, 1024)
+#: phases 18-19's bf16 requests: half of phase 6's
+FAMILY_SERVE_BF16 = (8, 256, 960, 32, 16, 1024)
+
+
+def phase_serve_f32(base_cfg, params, dev, tag="serve_f32", sizes=SERVE_F32):
     from repro_torch import serve
     from repro_torch.models import Model
 
     cfg = base_cfg.replace(dtype="float32")
     model = Model(cfg, device=dev)
-    gen, max_len = 16, 1024
-    prompts = _requests(cfg, 8, 300, 900, SEED + 2)
-    scfg = serve.ServeConfig(slots=4, page_size=16, max_len=max_len, max_new_tokens=gen)
+    n, lo, hi, gen, page, max_len = sizes
+    prompts = _requests(cfg, n, lo, hi, SEED + 2)
+    scfg = serve.ServeConfig(slots=4, page_size=page, max_len=max_len, max_new_tokens=gen)
     ex, ids, stats, launches, wall = _serve(model, params, prompts, gen, scfg)
     for i, p in zip(ids, prompts):
         ref = serve.greedy_generate(model, params, torch.as_tensor(p)[None], gen, max_len)
@@ -655,17 +752,17 @@ def phase_serve_f32(base_cfg, params, dev, tag="serve_f32"):
         f"for all; decode_steps={stats.steps} flash_decode_launches={launches} "
         f"wall_s={wall:.3f}")
     return {"requests": len(ids), "decode_steps": stats.steps, "flash_decode_launches": launches,
-            "wall_s": wall}
+            "wall_s": wall, "prompt_tokens": sum(len(p) for p in prompts)}
 
 
-def phase_serve_bf16(cfg, params, dev, out_dir, tag="serve_bf16"):
+def phase_serve_bf16(cfg, params, dev, out_dir, tag="serve_bf16", sizes=SERVE_BF16):
     from repro_torch import serve
     from repro_torch.models import Model
 
     model = Model(cfg, device=dev)
-    gen = 32
-    prompts = _requests(cfg, 16, 256, 960, SEED + 3)
-    scfg = serve.ServeConfig(slots=4, page_size=16, max_len=1024, max_new_tokens=gen)
+    n, lo, hi, gen, page, max_len = sizes
+    prompts = _requests(cfg, n, lo, hi, SEED + 3)
+    scfg = serve.ServeConfig(slots=4, page_size=page, max_len=max_len, max_new_tokens=gen)
     torch.cuda.reset_peak_memory_stats()
     ex, ids, stats, launches, wall = _serve(model, params, prompts, gen, scfg)
     peak = torch.cuda.max_memory_allocated()
@@ -674,7 +771,7 @@ def phase_serve_bf16(cfg, params, dev, out_dir, tag="serve_bf16"):
         "ttft_p50_ms": stats.ttft.p50_us / 1e3, "ttft_p99_ms": stats.ttft.p99_us / 1e3,
         "tpot_p50_ms": stats.tpot.p50_us / 1e3, "tpot_p99_ms": stats.tpot.p99_us / 1e3,
         "decode_steps": stats.steps, "flash_decode_launches": launches,
-        "max_memory_allocated": peak,
+        "prompt_tokens": sum(len(p) for p in prompts), "max_memory_allocated": peak,
     }
     log(f"{tag}: " + json.dumps(result))
     result["step_profile"] = profile_step(model, params, scfg, prompts[:4], out_dir,
@@ -764,7 +861,10 @@ def profile_step(model, params, scfg, prompts, out_dir, name="decode_step"):
 #: (perf/bench_*.py), each half of a 64-key tile at Dh 64: mini-BERT at
 #: widths 128, 256, 384 (H 2, 4, 6 over as many KV heads, non-causal) at
 #: its training and evaluation batches, and gemma3-1b's smoke layers (H 2
-#: over KV 1, window 8 on the local one) at bench_cont_pretrain's batches
+#: over KV 1, window 8 on the local one) at bench_cont_pretrain's batches;
+#: zamba2-7b's shared attention block (G 1, Dh 112: the 128-wide tiles
+#: zero-fill 16 columns) at phase 21's batches (4, and 2: the f32 pairs and
+#: the meta batch), and at ragged S and T (partial tiles on both sides)
 TRAIN_SHAPES = [
     ("bert-base", 48, 128, 128, 12, 1, 64, False, 0, 0.0, False),
     ("gemma-like", 2, 300, 333, 1, 4, 256, True, 128, 50.0, False),
@@ -776,6 +876,9 @@ TRAIN_SHAPES = [
       for kv, b in ((2, 16), (2, 32), (2, 128), (4, 16), (6, 16))),
     *((f"gemma3-1b smoke {tag} B{b}", b, 32, 32, 1, 2, 64, True, window, 0.0, False)
       for tag, window in (("local", 8), ("global", 0)) for b in (16, 64, 128)),
+    ("zamba2-7b", 4, 1024, 1024, 32, 1, 112, True, 0, 0.0, False),
+    ("zamba2-7b B2", 2, 1024, 1024, 32, 1, 112, True, 0, 0.0, False),
+    ("zamba2-like ragged", 2, 300, 333, 4, 1, 112, True, 0, 0.0, False),
 ]
 #: the plain forward drops padded keys on its chunked path only (make_mask
 #: keeps them, as the JAX reference's does): the padded shape runs it chunked
@@ -1332,9 +1435,11 @@ def phase_layer_attn_time(dev, cfg, batch=4, seq=1024):
 
 #: (name, B, S, V, sliced): gemma3-1b's LM loss, logits (4, 1024, V) read
 #: through the logits[:, :-1] view (R = 4,092), a ragged shape, and the LM
-#: losses of qwen2-moe-a2.7b and minicpm3-4b (V not a power of two)
+#: losses of qwen2-moe-a2.7b and minicpm3-4b (V not a power of two),
+#: rwkv6-1.6b and zamba2-7b
 CE_SHAPES = [("gemma3-1b", 4, 1024, 262_144, True), ("ragged", 1, 37, 5_000, False),
-             ("qwen2-moe-a2.7b", 4, 1024, 151_936, True), ("minicpm3-4b", 4, 1024, 73_448, True)]
+             ("qwen2-moe-a2.7b", 4, 1024, 151_936, True), ("minicpm3-4b", 4, 1024, 73_448, True),
+             ("rwkv6-1.6b", 4, 1024, 65_536, True), ("zamba2-7b", 4, 1024, 32_000, True)]
 #: bert-base's embedding, gemma3-1b's embedding, a ragged size
 ADAPT_SIZES = (23_440_896, 301_989_888, 1_000_003)
 
@@ -1504,8 +1609,8 @@ def _ce_times(dev, rng, dtype, shape=CE_SHAPES[0]):
 def phase_new_kernel_time(dev):
     """weighted_ce forward and backward at gemma3-1b's LM loss shape in
     the main path's dtype (f32 logits), and its f16 instantiation beside
-    the bf16 one at the same shape (``_ce_times``), then at qwen2-moe's and
-    minicpm3's LM loss shapes (f32 logits); lion_adapt and
+    the bf16 one at the same shape (``_ce_times``), then at the LM loss
+    shapes of qwen2-moe, minicpm3, rwkv6 and zamba2 (f32 logits); lion_adapt and
     adafactor_adapt at bert-base's embedding beside their plain versions
     (no library call)."""
     from repro_torch.kernels import adafactor_adapt, lion_adapt, weighted_ce as wce
@@ -1518,7 +1623,7 @@ def phase_new_kernel_time(dev):
         f16[kernel]["bf16_ms"] = bf16[kernel]["ms"]
         f16[kernel]["bf16_ms_repeat"] = bf16[kernel]["ms_repeat"]
         out[f"{kernel}_f16"] = f16[kernel]
-    # the LM losses of phases 18 and 19, f32 logits
+    # the LM losses of phases 18, 19 and 21, f32 logits
     for shape in CE_SHAPES[2:]:
         for kernel, e in _ce_times(dev, rng, torch.float32, shape).items():
             out[kernel][shape[0]] = e
@@ -1620,6 +1725,10 @@ def _lm_warm_batches(cfg, dev, batch, seq, unroll, seed):
 
 
 F32_TOL = {"base_loss": 1e-5, "meta_loss": 1e-5, "eps": 2e-3, "hypergrad_norm": 2e-3}
+#: where plain steps from theta moved by one ulp part from the plain step
+#: beyond F32_TOL (rwkv6 at its init), the kernel step is held at this many
+#: times their largest spread (phase 21)
+FLOOR_MARGIN = 1.5
 
 
 def _diff(got, ref, got_s, ref_s, state, sign_lr=None):
@@ -1663,7 +1772,7 @@ def _diff(got, ref, got_s, ref_s, state, sign_lr=None):
     return diff
 
 
-def _hold(tag, diff, sign_lr=None, nonfinite_ok=False):
+def _hold(tag, diff, sign_lr=None, nonfinite_ok=False, tol=F32_TOL, share_limit=None):
     """The metrics within F32_TOL; theta and lam per leaf within 1e-6 + 5%
     of the step's largest update. With ``nonfinite_ok`` (the baseline
     estimators, whose reference can give NaN) a metric may instead be
@@ -1673,8 +1782,10 @@ def _hold(tag, diff, sign_lr=None, nonfinite_ok=False):
     theta coordinates beyond the bound only where the two steps took
     opposite signs of a momentum vote c that rounding decides: each 2 lr
     (or lr, a sign of 0) apart within the bound, and at most 1e-5 of the
-    coordinates."""
-    for key, rtol in F32_TOL.items():
+    coordinates. ``tol`` replaces F32_TOL and ``share_limit`` {field: the
+    share of the bound it may reach, 1 by default} (phase 21's rounding
+    floor, FLOOR_MARGIN times it where it passes phase 7's bounds)."""
+    for key, rtol in tol.items():
         got, ref, _ = diff[key]
         if nonfinite_ok and (got == ref or (math.isnan(got) and math.isnan(ref))):
             continue
@@ -1684,7 +1795,7 @@ def _hold(tag, diff, sign_lr=None, nonfinite_ok=False):
         bad = diff[f"{field}_nonfinite"]
         if bad[2] or (not nonfinite_ok and (bad[0] or bad[1])):
             raise AssertionError(f"{tag} {field}: non-finite coordinates {bad}")
-        if diff[f"{field}_share_of_bound"] <= 1.0:
+        if diff[f"{field}_share_of_bound"] <= (share_limit or {}).get(field, 1.0):
             continue
         beyond, total, not_flips = diff[f"{field}_beyond_bound"]
         flips_ok = (sign_lr is not None and field == "theta" and not_flips == 0
@@ -2888,7 +2999,31 @@ def _lm_want(cfg, unroll, leaves):
     return {wce.FWD: unroll + 3, wce.BWD: unroll + 1, **_train_launches(cfg, unroll, leaves)}
 
 
-def phase_family_train_f32(base_cfg, dev, layers, tag, batch=2, seq=1024, unroll=2, steps=3):
+def _rounding_floor(learner, state, base, meta, seed, draws):
+    """``draws`` plain steps from ``state``, each with every theta
+    coordinate moved by about one f32 ulp (2^-23 relative, normal draws
+    from ``seed``): [(metrics, {"theta", "lam"} on the host)]. Beside the
+    plain step from ``state`` itself (``_diff``), the spread that rounding
+    alone gives the step."""
+    from repro_torch import tree
+    from repro_torch.core.engine import packed_read
+    from repro_torch.kernels import dispatch
+
+    gen = torch.Generator(device=state.step.device).manual_seed(seed)
+    out = []
+    for _ in range(draws):
+        theta = tree.tree_map(lambda x: x * (1 + 2.0 ** -23 * torch.randn(
+            x.shape, generator=gen, device=x.device)), state.theta)
+        with dispatch.plain_everywhere():
+            moved, metrics = learner.step_fn(state._replace(theta=theta), base, meta)
+        out.append((packed_read(metrics),
+                    tree.tree_map(lambda x: x.cpu(), {"theta": moved.theta, "lam": moved.lam})))
+        del theta, moved
+    return out
+
+
+def phase_family_train_f32(base_cfg, dev, layers, tag, batch=2, seq=1024, unroll=2, steps=3,
+                           floor_draws=0):
     """Full width, depth ``layers``, f32, the per-sequence LM loss, batch
     2, seq 1024, unroll 2, warm rows, base Adam eps 1e-3: three step pairs,
     kernels against plain_everywhere from one state, with the launches held
@@ -2897,7 +3032,17 @@ def phase_family_train_f32(base_cfg, dev, layers, tag, batch=2, seq=1024, unroll
     that differ by rounding, and a token whose k-th and (k+1)-th gate
     probabilities lie within it takes another expert (an O(1) change of its
     output). With none, the pair is held at phase 7's tolerances; with
-    some, the line says so and only the losses are held."""
+    some, the line says so and only the losses are held.
+
+    With ``floor_draws`` (rwkv6 in phase 21, whose step at its init is
+    chaotic at rounding level: ROADMAP queue 3), each state also takes
+    that many plain steps from theta moved by about one ulp
+    (``_rounding_floor``), each compared with the plain step as the kernel
+    step is (``_diff``): their largest spread is the floor that rounding
+    alone sets. Every quantity is then held at the larger of phase 7's
+    bound and FLOOR_MARGIN times its floor: where rounding alone moves it
+    beyond phase 7's bound, a kernel step can be held no closer than that,
+    and is still held."""
     from repro_torch import optim, tree
     from repro_torch.models import Model
 
@@ -2912,10 +3057,14 @@ def phase_family_train_f32(base_cfg, dev, layers, tag, batch=2, seq=1024, unroll
     # waits on the host (host=True): at qwen2-moe's width the card holds one
     # state of three parameter-sized trees beside a step's own, with little
     # room to spare for the allocator's split free blocks
-    state, learner.state, rows, flips = learner.state, None, [], []
+    state, learner.state, rows, flips, at_phase7 = learner.state, None, [], [], []
     with _RouteRecorder() as rec:
         for i in range(steps):
-            state, diff, launches, secs = _step_pair(learner, state, *batches(i), tuple(want),
+            base, meta = batches(i)  # each call draws new batches
+            moved = (_rounding_floor(learner, state, base, meta, SEED + 90 + i, floor_draws)
+                     if floor_draws else [])
+            prev = state
+            state, diff, launches, secs = _step_pair(learner, state, base, meta, tuple(want),
                                                      host=True)
             if launches != want:
                 raise AssertionError(f"{tag} step {i}: launches {launches} != {want}")
@@ -2923,8 +3072,30 @@ def phase_family_train_f32(base_cfg, dev, layers, tag, batch=2, seq=1024, unroll
             diff["routing_flips"] = flip
             diff["seconds_kernels_plain"] = list(secs)
             flips.append(flip[0])
+            tol, limit = F32_TOL, None
+            if moved:
+                ref = {k: diff[k][1] for k in F32_TOL}
+                ref_s = {"theta": state.theta, "lam": state.lam}
+                spread = [_diff(m, ref, ms, ref_s, prev) for m, ms in moved]
+                floor = {k: max(d[k][2] for d in spread) for k in F32_TOL}
+                shares = {f: max(d[f"{f}_share_of_bound"] for d in spread)
+                          for f in ("theta", "lam")}
+                tol = {k: max(F32_TOL[k], FLOOR_MARGIN * floor[k]) for k in F32_TOL}
+                limit = {f: max(1.0, FLOOR_MARGIN * shares[f]) for f in shares}
+                diff["rounding_floor"] = {"draws": floor_draws, "rel": floor,
+                                          "share_of_bound": shares, "tol": tol,
+                                          "share_limit": limit}
+                widened = ([k for k in F32_TOL if tol[k] > F32_TOL[k]]
+                           + [f for f in limit if limit[f] > 1.0])
+                diff["rounding_floor"]["widened"] = widened
+                if widened:
+                    log(f"{tag} step {i}: plain steps from theta moved by one ulp part from "
+                        f"the plain step beyond phase 7's bounds in {widened}: those held at "
+                        f"{FLOOR_MARGIN} times that floor, the rest at phase 7's")
+            del prev, moved
+            at_phase7.append(flip[0] == 0 and not diff.get("rounding_floor", {}).get("widened"))
             if flip[0] == 0:
-                _hold(f"{tag} step {i}", diff)
+                _hold(f"{tag} step {i}", diff, tol=tol, share_limit=limit)
             else:
                 for key in ("base_loss", "meta_loss"):
                     got, ref, _ = diff[key]
@@ -2937,7 +3108,8 @@ def phase_family_train_f32(base_cfg, dev, layers, tag, batch=2, seq=1024, unroll
             rows.append(diff)
     out = {"layers": layers, "params": n_params, "batch": batch,
            "seq": seq, "unroll": unroll, "base_adam_eps": 1e-3, "launches_per_step": want,
-           "routing_flips_per_step": flips, "held_in_full": [f == 0 for f in flips],
+           "routing_flips_per_step": flips,
+           "held_at_phase7_bounds": at_phase7,
            "max_memory_allocated": torch.cuda.max_memory_allocated(), "per_step": rows}
     del learner, state
     torch.cuda.empty_cache()
@@ -2977,13 +3149,18 @@ def phase_family_train_bf16(cfg, dev, out_dir, layers, tag, batch=4, seq=1024, u
     return result
 
 
-def phase_family(cfg, dev, out_dir, layers, tag):
-    """Phase 18 (qwen2-moe-a2.7b) or 19 (minicpm3-4b): (a) serving in f32
-    at full width and depth, tokens equal to the serial path; (b) serving
-    in bf16 with qps, TTFT, TPOT, peak memory and flash_decode launches (24
-    per decode step for qwen2-moe, none for MLA's plain decode); (c) and
-    (d) training at full width and depth ``layers``, f32 step pairs and
-    bf16 timed steps."""
+def phase_family(cfg, dev, out_dir, layers, tag, serve_sizes=(SERVE_F32, SERVE_BF16),
+                 f32_steps=3, floor_draws=0):
+    """Phase 18 (qwen2-moe-a2.7b), 19 (minicpm3-4b) or one half of 21
+    (rwkv6-1.6b, zamba2-7b): (a) serving in f32 at full width and depth,
+    tokens equal to the serial path; (b) serving in bf16 with qps, TTFT,
+    TPOT, peak memory and flash_decode launches (one per attention layer
+    per decode step and per scanned prompt token: 24 for qwen2-moe, none
+    for MLA's plain decode or rwkv6, zamba2's 13 uses of its shared block);
+    (c) and (d) training at full width, f32 step pairs and bf16 timed
+    steps, at depth ``layers``: one depth for both, or (f32, bf16).
+    ``serve_sizes``: the requests of (a) and (b), as SERVE_F32 and
+    SERVE_BF16; ``floor_draws``: phase_family_train_f32's."""
     from repro_torch import tree
     from repro_torch.models import Model
 
@@ -2993,14 +3170,61 @@ def phase_family(cfg, dev, out_dir, layers, tag):
     torch.cuda.synchronize()
     n = sum(x.numel() for x in tree.tree_leaves(params))
     log(f"init: {cfg.name} {n} params f32 in {time.perf_counter() - t0:.2f}s")
-    out["serve_f32"] = phase_serve_f32(cfg, params, dev, f"{tag}_serve_f32")
+    out["serve_f32"] = phase_serve_f32(cfg, params, dev, f"{tag}_serve_f32", serve_sizes[0])
     out["serve_bf16"], out["flash_decode_launches"] = phase_serve_bf16(
-        cfg, params, dev, out_dir, f"{tag}_serve_bf16")
+        cfg, params, dev, out_dir, f"{tag}_serve_bf16", serve_sizes[1])
     out["params_full_depth"] = n
     del params
     torch.cuda.empty_cache()
-    out["train_f32"] = phase_family_train_f32(cfg, dev, layers, f"{tag}_train_f32")
-    out["train_bf16"] = phase_family_train_bf16(cfg, dev, out_dir, layers, f"{tag}_train_bf16")
+    f32_layers, bf16_layers = layers if isinstance(layers, tuple) else (layers, layers)
+    out["train_f32"] = phase_family_train_f32(cfg, dev, f32_layers, f"{tag}_train_f32",
+                                              steps=f32_steps, floor_draws=floor_draws)
+    out["train_bf16"] = phase_family_train_bf16(cfg, dev, out_dir, bf16_layers,
+                                                f"{tag}_train_bf16")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the recurrent families, rwkv6-1.6b (ssm) and zamba2-7b (hybrid)
+# ---------------------------------------------------------------------------
+
+#: phase 21's requests (as SERVE_F32), twice the 4 slots in each dtype, so
+#: that slots retire and are prefilled again over live lanes: prompts of
+#: 32-40 tokens, each one decode step a token through the scan prefill (57
+#: and 90 ms a token for rwkv6 and zamba2 in bf16, on the host), 8 generated;
+#: page 64 and max_len 128 keep zamba2's decode at the cache lengths
+#: ZAMBA_DECODE_T holds
+RECURRENT_SERVE = ((8, 32, 40, 8, 64, 128), (8, 32, 40, 8, 64, 128))
+#: training depths at full width, (f32 step pairs, bf16 timed steps). rwkv6's
+#: bf16 steps at its full 24 (1.45 B parameters), its f32 pairs at 12 (0.79 B:
+#: their peak, 43 GB there, grows with the parameters toward 80 GB at 24, and
+#: the floor's plain steps take time); zamba2 at 9 for
+#: both, the 3 leading Mamba blocks and one group of 6 with the shared block
+#: (1.02 B: at its full 81 the f32 parameter-sized trees of the step pass
+#: 80 GB)
+RECURRENT_TRAIN_LAYERS = {"rwkv6-1.6b": (12, 24), "zamba2-7b": (9, 9)}
+#: plain steps from theta moved by one ulp per f32 pair: rwkv6's step at its
+#: init is chaotic at rounding level; zamba2 is held at phase 7's bounds
+RECURRENT_FLOOR_DRAWS = {"rwkv6-1.6b": 3, "zamba2-7b": 0}
+
+
+def phase_recurrent(cfg, dev, out_dir, tag):
+    """21(a-d) rwkv6-1.6b, 21(e-h) zamba2-7b: ``phase_family`` with
+    RECURRENT_SERVE's requests, RECURRENT_TRAIN_LAYERS' depths and
+    RECURRENT_FLOOR_DRAWS; every signature at which the run launched the
+    attention kernels one that phases 3 and 4 held against the plain
+    versions (CHECKED)."""
+    with _attn_signatures() as seen:
+        out = phase_family(cfg, dev, out_dir, RECURRENT_TRAIN_LAYERS[cfg.name], tag,
+                           RECURRENT_SERVE, f32_steps=2,
+                           floor_draws=RECURRENT_FLOOR_DRAWS[cfg.name])
+    for kernel, sigs in seen.items():
+        unchecked = sorted(map(str, sigs - CHECKED[kernel]))
+        if unchecked:
+            raise AssertionError(f"{cfg.name}: {kernel} launched at signatures no check held "
+                                 f"against the plain version: {unchecked}")
+    out["attention_signatures"] = {k: sorted(map(str, v)) for k, v in seen.items()}
+    log(f"{tag}_signatures: " + json.dumps(out["attention_signatures"]))
     return out
 
 
@@ -3291,7 +3515,10 @@ def main():
                   "bf16_vs_f32_share_of_bound": worst_vs_f32,
                   "kernel_ms": timing["ms"], **timing})
     qwen = configs.get_config("qwen2-moe-a2.7b")
-    entry[qwen.name] = timed("qwen_decode_time", phase_qwen_decode_time, dev, qwen)
+    entry[qwen.name] = timed("qwen_decode_time", phase_family_decode_time, dev, qwen)
+    zamba = configs.get_config("zamba2-7b")
+    entry[zamba.name] = timed("zamba_decode_time", phase_family_decode_time, dev, zamba,
+                              layers=_gqa_layers(zamba))
 
     # phase 4: the training kernels
     t_worst, t_share, adam_worst = timed("train_kernel_check", phase_train_kernel_check, dev)
@@ -3299,9 +3526,19 @@ def main():
     ce_worst = timed("ce_kernel_check", phase_ce_kernel_check, dev)
     adapt_worst = timed("adapt_kernel_check", phase_adapt_kernel_check, dev)
     t_time = timed("train_kernel_time", phase_train_kernel_time, dev, bert, batch=48, seq=128)
-    for name, e in timed("gemma_attn_time", phase_layer_attn_time, dev, cfg).items():
+    # the layer timings run over a cut of each model's layers (each with its
+    # own inputs, beside the 50 MB L2), for the run's time limit: gemma3-1b's
+    # pattern over 12 layers (10 local, 2 global), qwen2-moe's 6 of 24
+    for name, e in timed("gemma_attn_time", phase_layer_attn_time, dev,
+                         cfg.replace(num_layers=12)).items():
         t_time[name].update(e)
-    for name, e in timed("qwen_attn_time", phase_layer_attn_time, dev, qwen).items():
+    for name, e in timed("qwen_attn_time", phase_layer_attn_time, dev,
+                         qwen.replace(num_layers=6)).items():
+        t_time[name].update(e)
+    # zamba2-7b: 6 of its shared block's 13 uses, each with its own inputs
+    # (700 MB of them, beside the 50 MB L2)
+    zamba_uses = zamba.replace(num_layers=6)
+    for name, e in timed("zamba_attn_time", phase_layer_attn_time, dev, zamba_uses).items():
         t_time[name].update(e)
     t_time.update(timed("new_kernel_time", phase_new_kernel_time, dev))
     train_entries = []
@@ -3393,11 +3630,12 @@ def main():
             "distributed manual, each of 2 gloo ranks (3 meta steps)")
 
     # phases 18-19: the moe family and MLA at full width (training at a cut
-    # depth: the f32 parameter-sized trees of the step at full depth pass 80 GB)
+    # depth: the f32 parameter-sized trees of the step at full depth pass 80 GB;
+    # minicpm3 at 4 layers and 8 bf16 requests each, for the run's time limit)
     fam = {}
-    for tag, arch, layers in (("moe", "qwen2-moe-a2.7b", 2), ("mla", "minicpm3-4b", 16)):
+    for tag, arch, layers in (("moe", "qwen2-moe-a2.7b", 2), ("mla", "minicpm3-4b", 4)):
         fam[tag] = timed(tag, phase_family, configs.get_config(arch), dev, args.out, layers,
-                         tag)
+                         tag, (SERVE_F32, FAMILY_SERVE_BF16))
         torch.cuda.empty_cache()
     entry["launches_moe_serve_bf16"] = fam["moe"]["flash_decode_launches"]
     entry["launches_mla_serve_bf16"] = fam["mla"]["flash_decode_launches"]
@@ -3453,6 +3691,18 @@ def main():
         if not e["launches"] >= 1:
             raise AssertionError(f"{e['name']}: no launch on its path")
         train_entries.append(e)
+    # phase 21: the recurrent families at full width (training at the
+    # depths of RECURRENT_TRAIN_LAYERS)
+    rec = {}
+    for tag, arch in (("rwkv", "rwkv6-1.6b"), ("zamba", "zamba2-7b")):
+        rec[tag] = timed(tag, phase_recurrent, configs.get_config(arch), dev, args.out, tag)
+        torch.cuda.empty_cache()
+    for tag, out in rec.items():
+        entry[f"launches_{tag}_serve_bf16"] = out["flash_decode_launches"]
+        for name, e in by_name.items():
+            if name in out["train_bf16"]["launches"]:
+                e[f"launches_{tag}_train_bf16"] = out["train_bf16"]["launches"][name]
+
     log(f"phase_seconds: {json.dumps(secs)} total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": [entry] + train_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

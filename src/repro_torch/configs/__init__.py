@@ -1,6 +1,7 @@
 """Architecture config registry of the port: the architectures of the
-families it runs (dense, with and without MLA, moe and encoder). The
-recurrent, audio and vision architectures join with their families."""
+families it runs (dense, with and without MLA, moe, encoder, and the
+recurrent ssm and hybrid families). The audio and vision architectures
+join with their families."""
 
 import importlib
 
@@ -8,7 +9,9 @@ from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
     "gemma3-1b": "gemma3_1b",
+    "zamba2-7b": "zamba2_7b",
     "kimi-k2-1t-a32b": "kimi_k2",
+    "rwkv6-1.6b": "rwkv6_1b6",
     "gemma2-9b": "gemma2_9b",
     "qwen2-moe-a2.7b": "qwen2_moe",
     "gemma3-27b": "gemma3_27b",

@@ -1,17 +1,22 @@
-"""Model assembly, after ``src/repro/models/transformer.py``, for three
+"""Model assembly, after ``src/repro/models/transformer.py``, for five
 families: ``dense`` (GQA or MLA attention + MLP, heterogeneous
 local/global layers), ``moe`` (leading dense layers, then attention +
 mixture-of-experts layers whose load-balance aux losses sum into the
-forward's aux) and ``encoder`` (the BERT-style classifier: init and
-forward). For dense and moe: init, the training forward, the decode cache
-and the decode step. The recurrent, audio and vision families come with
-their slices (ROADMAP queue 1 items 4b and 4c).
+forward's aux), ``ssm`` (RWKV6 blocks: time mix + channel mix), ``hybrid``
+(Zamba2: leading Mamba2 blocks, then groups of Mamba2 blocks each followed
+by ONE shared attention block, whose gradient sums over its uses) and
+``encoder`` (the BERT-style classifier: init and forward). For all but the
+encoder: init, the training forward, the decode cache and the decode step.
+The audio and vision families come with their slice (ROADMAP queue 1 item
+4c).
 
-Layer parameters and the cache carry a leading layer axis, as the JAX
-stacks do; the forward and the decode step walk the layers in a Python
-loop where JAX scans them. With ``cfg.remat`` each layer of the forward
-runs under ``torch.utils.checkpoint``: its activations are recomputed in
-the backward pass, as ``jax.checkpoint`` on the JAX scan body does.
+Layer parameters and the cache carry leading layer axes, as the JAX stacks
+do (zamba2's ``mamba_groups`` two: groups, then blocks); the forward and
+the decode step walk the layers in a Python loop where JAX scans them.
+With ``cfg.remat`` each layer of the forward (each group, for zamba2's
+groups) runs under ``torch.utils.checkpoint``: its activations are
+recomputed in the backward pass, as ``jax.checkpoint`` on the JAX scan
+body does.
 """
 
 from __future__ import annotations
@@ -25,15 +30,19 @@ import torch.utils.checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 
 Tree = Any
 
 #: the ROADMAP item that ports each family the port does not run yet
-_UNPORTED = {"ssm": "queue 1 item 4b", "hybrid": "queue 1 item 4b",
-             "audio": "queue 1 item 4c", "vlm": "queue 1 item 4c"}
+_UNPORTED = {"audio": "queue 1 item 4c", "vlm": "queue 1 item 4c"}
+
+#: families whose decode cache is recurrent state, advanced one token per step
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+_DECODERS = ("dense", "moe") + RECURRENT_FAMILIES
 
 
-def _check_family(cfg, families=("dense", "moe")) -> None:
+def _check_family(cfg, families=_DECODERS) -> None:
     if cfg.family not in families:
         where = _UNPORTED.get(cfg.family)
         raise ValueError(
@@ -87,6 +96,36 @@ def _flags(cfg) -> List[bool]:
     return [k == "local" for k in cfg.layer_kinds]
 
 
+def _hybrid_layout(cfg) -> Tuple[int, int, int]:
+    """zamba2: (blocks per group, groups, leading blocks before the first
+    group)."""
+    k_grp = cfg.hybrid_attn_every
+    return k_grp, cfg.num_layers // k_grp, cfg.num_layers % k_grp
+
+
+def _init_rwkv_block(cfg, gen, dtype, device, lead):
+    return {
+        "ln1": cm.init_norm(cfg, device=device, lead=lead),
+        "ln2": cm.init_norm(cfg, device=device, lead=lead),
+        "tmix": ssm_mod.init_rwkv_time_mix(cfg, gen, dtype=dtype, device=device, lead=lead),
+        "cmix": ssm_mod.init_rwkv_channel_mix(cfg, gen, dtype=dtype, device=device, lead=lead),
+    }
+
+
+def _rwkv_block(cfg, lp, h):
+    h = h + ssm_mod.apply_rwkv_time_mix(cfg, lp["tmix"], cm.apply_norm(cfg, lp["ln1"], h))
+    return h + ssm_mod.apply_rwkv_channel_mix(cfg, lp["cmix"], cm.apply_norm(cfg, lp["ln2"], h))
+
+
+def _init_mamba_block(cfg, gen, dtype, device, lead):
+    return {"ln1": cm.init_norm(cfg, device=device, lead=lead),
+            "mamba": ssm_mod.init_mamba(cfg, gen, dtype=dtype, device=device, lead=lead)}
+
+
+def _mamba_block(cfg, lp, h):
+    return h + ssm_mod.apply_mamba(cfg, lp["mamba"], cm.apply_norm(cfg, lp["ln1"], h))
+
+
 def _embed(cfg, params, tokens, dtype, positions: Optional[torch.Tensor] = None):
     """``positions`` (B, S) for the learned position table; None means the
     tokens start at position 0 (training)."""
@@ -108,7 +147,7 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Tree:
     """Random parameters from ``seed`` (a ``torch.Generator`` on
     ``device``); on the ``meta`` device, shapes only."""
 
-    _check_family(cfg, ("dense", "moe", "encoder"))
+    _check_family(cfg, _DECODERS + ("encoder",))
     device = cm.resolve_device(device)
     gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     dtype = cm.dtype_of(cfg.param_dtype)
@@ -122,6 +161,14 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Tree:
         if nd:
             params["dense_layers"] = _init_dense_layer(cfg, gen, dtype, device, (nd,))
         params["layers"] = _init_moe_layer(cfg, gen, dtype, device, (cfg.num_layers - nd,))
+    elif cfg.family == "ssm":
+        params["layers"] = _init_rwkv_block(cfg, gen, dtype, device, (cfg.num_layers,))
+    elif cfg.family == "hybrid":
+        k_grp, n_groups, n_extra = _hybrid_layout(cfg)
+        if n_extra:
+            params["mamba_head"] = _init_mamba_block(cfg, gen, dtype, device, (n_extra,))
+        params["mamba_groups"] = _init_mamba_block(cfg, gen, dtype, device, (n_groups, k_grp))
+        params["shared_attn"] = _init_dense_layer(cfg, gen, dtype, device, ())
     else:
         params["layers"] = _init_dense_layer(cfg, gen, dtype, device, (cfg.num_layers,))
     if cfg.pos_embed == "learned":
@@ -145,12 +192,13 @@ def _run_layer(cfg, fn, *args):
 
 def forward(cfg, params: Tree, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward: (logits, aux loss). batch: tokens (B, S).
-    Dense and moe: next-token logits (B, S, V) f32, and for moe the sum of
-    the MoE layers' load-balance losses as aux (else 0). Encoder:
-    bidirectional layers, then the classifier on the first token,
-    (B, num_labels) f32."""
+    Dense, moe, ssm and hybrid: next-token logits (B, S, V) f32, and for
+    moe the sum of the MoE layers' load-balance losses as aux (else 0); the
+    recurrent families need S to be a multiple of ``cfg.ssm_chunk`` where
+    S exceeds it. Encoder: bidirectional layers, then the classifier on the
+    first token, (B, num_labels) f32."""
 
-    _check_family(cfg, ("dense", "moe", "encoder"))
+    _check_family(cfg, _DECODERS + ("encoder",))
     dtype = cm.dtype_of(cfg.dtype)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -174,6 +222,21 @@ def forward(cfg, params: Tree, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Te
         for lp in cm.unbind_layers(params["layers"]):
             x, aux_l = _run_layer(cfg, moe, x, lp)
             aux = aux + aux_l
+    elif cfg.family == "ssm":
+        for lp in cm.unbind_layers(params["layers"]):
+            x = _run_layer(cfg, lambda h, p: _rwkv_block(cfg, p, h), x, lp)
+    elif cfg.family == "hybrid":
+        if "mamba_head" in params:
+            for lp in cm.unbind_layers(params["mamba_head"]):
+                x = _run_layer(cfg, lambda h, p: _mamba_block(cfg, p, h), x, lp)
+
+        def group(h, gp, shared):  # k Mamba blocks, then the shared block
+            for lp in cm.unbind_layers(gp):
+                h = _mamba_block(cfg, lp, h)
+            return _dense_layer(cfg, shared, h, positions, False)[0]
+
+        for gp in cm.unbind_layers(params["mamba_groups"]):
+            x = _run_layer(cfg, group, x, gp, params["shared_attn"])
     else:
         for lp, flag in zip(cm.unbind_layers(params["layers"]), _flags(cfg)):
             x = _run_layer(cfg, dense, x, lp, flag)
@@ -191,7 +254,12 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
     """The decode cache, leaves stacked over layers: dense {"kv": {"k",
     "v"}} of (L, B, T, KV, Dh), or with MLA {"kv": {"ckv" (L, B, T, r),
     "krope" (L, B, T, Dr)}}; moe {"kv"} over its MoE layers and, with
-    leading dense layers, {"dense_kv"} over those."""
+    leading dense layers, {"dense_kv"} over those. The recurrent families
+    hold state with no time axis: ssm {"layers": {"S" (L, B, H, K, K) f32
+    whatever ``dtype``, "x_att", "x_ffn" (L, B, D)}}; hybrid {"groups":
+    {"ssm" (G, k, B, H, P, N), "conv" (G, k, B, K - 1, C)}, "attn_kv"
+    (G, B, T, KV, Dh) for the shared block's G uses and, with leading
+    blocks, "head" as "groups" over those}."""
 
     _check_family(cfg)
     device = cm.resolve_device(device)
@@ -200,6 +268,19 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
         init = attn.init_mla_cache if cfg.use_mla else attn.init_kv_cache
         return init(cfg, batch, cache_len, dtype, device=device, lead=(n,))
 
+    if cfg.family == "ssm":
+        return {"layers": ssm_mod.init_rwkv_state(cfg, batch, dtype, device=device,
+                                                  lead=(cfg.num_layers,))}
+    if cfg.family == "hybrid":
+        k_grp, n_groups, n_extra = _hybrid_layout(cfg)
+        cache = {"groups": ssm_mod.init_mamba_state(cfg, batch, dtype, device=device,
+                                                    lead=(n_groups, k_grp)),
+                 "attn_kv": attn.init_kv_cache(cfg, batch, cache_len, dtype, device=device,
+                                               lead=(n_groups,))}
+        if n_extra:
+            cache["head"] = ssm_mod.init_mamba_state(cfg, batch, dtype, device=device,
+                                                     lead=(n_extra,))
+        return cache
     if cfg.family == "moe":
         nd = cfg.first_k_dense
         cache = {"kv": attn.init_kv_cache(cfg, batch, cache_len, dtype, device=device,
@@ -213,7 +294,9 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
 def decode_step(cfg, params: Tree, cache: Tree, tokens: torch.Tensor,
                 pos) -> Tuple[torch.Tensor, Tree]:
     """tokens: (B, S) int — S = 1 for one-token decode, S > 1 for a
-    teacher-forced prefill block.
+    teacher-forced prefill block (attention caches only: the recurrent
+    families advance their state one token per call, and their prefill is
+    the token scan of ``repro_torch.serve.prefill``).
 
     pos: position of tokens[:, 0] — an int when every lane is at the same
     position, or a (B,) tensor of per-lane positions (continuous batching
@@ -228,6 +311,10 @@ def decode_step(cfg, params: Tree, cache: Tree, tokens: torch.Tensor,
     dtype = cm.dtype_of(cfg.dtype)
     B, S = tokens.shape
     dev = tokens.device
+    if S != 1 and cfg.family in RECURRENT_FAMILIES:
+        raise ValueError(
+            f"family {cfg.family!r} is recurrent: decode_step advances one token per "
+            "call (chunked prefill uses the token-scan path, repro_torch.serve.prefill)")
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         pos_col = pos.to(device=dev, dtype=torch.int32)[:, None]
     else:
@@ -239,7 +326,40 @@ def decode_step(cfg, params: Tree, cache: Tree, tokens: torch.Tensor,
         return [{name: leaf[i] for name, leaf in stack.items()}
                 for i in range(next(iter(stack.values())).shape[0])]
 
-    if cfg.family == "moe":
+    def commit(stack, idx, new):  # a layer's new state, into its stacked leaves
+        for name, value in new.items():
+            stack[name][idx].copy_(value)
+
+    def mamba_step(h, lp, stack, idx):
+        st = {name: leaf[idx] for name, leaf in stack.items()}
+        out, new = ssm_mod.mamba_decode(cfg, lp["mamba"], cm.apply_norm(cfg, lp["ln1"], h), st)
+        commit(stack, idx, new)
+        return h + out
+
+    if cfg.family == "ssm":
+        stack = cache["layers"]
+        for i in range(cfg.num_layers):
+            lp = cm.unstack_layer(params["layers"], i)
+            st = {name: leaf[i] for name, leaf in stack.items()}
+            out, st_att = ssm_mod.rwkv_time_mix_decode(cfg, lp["tmix"],
+                                                       cm.apply_norm(cfg, lp["ln1"], x), st)
+            x = x + out
+            out, st_ffn = ssm_mod.rwkv_channel_mix_decode(cfg, lp["cmix"],
+                                                          cm.apply_norm(cfg, lp["ln2"], x), st)
+            x = x + out
+            commit(stack, i, {**st_att, **st_ffn})
+    elif cfg.family == "hybrid":
+        k_grp, n_groups, n_extra = _hybrid_layout(cfg)
+        for i in range(n_extra):
+            x = mamba_step(x, cm.unstack_layer(params["mamba_head"], i), cache["head"], i)
+        akv = cache["attn_kv"]
+        for g in range(n_groups):
+            gp = cm.unstack_layer(params["mamba_groups"], g)
+            for j in range(k_grp):
+                x = mamba_step(x, cm.unstack_layer(gp, j), cache["groups"], (g, j))
+            x, _ = _dense_layer(cfg, params["shared_attn"], x, positions, False,
+                                {"k": akv["k"][g], "v": akv["v"][g]}, pos)
+    elif cfg.family == "moe":
         if cfg.first_k_dense:
             for i, lc in enumerate(layer_caches(cache["dense_kv"])):
                 x, _ = _dense_layer(cfg, cm.unstack_layer(params["dense_layers"], i), x,

@@ -1,5 +1,6 @@
-"""Continuous-batching decode serving of the port: queue, paged cache,
-block prefill, batcher and executor (after ``src/repro/serve/``), and
+"""Continuous-batching decode serving of the port: queue, paged cache
+(K/V pages and per-slot recurrent state), block and scan prefill, batcher
+and executor (after ``src/repro/serve/``), and
 ``score_api``, which serves dataopt per-example scores through the same
 queue machinery."""
 

@@ -7,7 +7,8 @@ next queued request prefills into the freed slot, joining the in-flight
 batch between steps.
 
 One decode step is :func:`fused_step`: gather (paged pool -> dense bucket
-view) -> ``decode_step`` -> scatter (one column per lane back to its page,
+view, beside the per-slot recurrent state, which the step advances in
+place) -> ``decode_step`` -> scatter (one column per lane back to its page,
 in place) -> argmax and finiteness. Its launches are queued on the
 current CUDA stream and it returns device tensors without waiting, so the
 host work of the next tick overlaps the device. The bucket view length is
@@ -52,13 +53,15 @@ class ServeConfig:
     initial_pages: Optional[int] = None
     max_pages: Optional[int] = None
     dtype: Optional[str] = None
+    prefill_mode: str = "auto"  # "auto" | "block" | "scan"
 
 
 def decode_buckets(spec: CacheSpec, cfg: ServeConfig) -> Tuple[int, ...]:
     """Power-of-two page-multiple view lengths up to ``max_len``, filtered
     by the gathered-view memory cost (``slots x bucket x bytes/token``).
     The ``max_len`` bucket must survive the filter: a request the config
-    admits must also be decodable."""
+    admits must also be decodable. A cache of state alone costs nothing
+    per token, so its every bucket survives."""
 
     buckets: List[int] = []
     b = cfg.page_size
@@ -80,13 +83,13 @@ def decode_buckets(spec: CacheSpec, cfg: ServeConfig) -> Tuple[int, ...]:
 
 @torch.no_grad()
 def fused_step(model, spec: CacheSpec, params, pools: List[torch.Tensor],
-               table_view: torch.Tensor, pos: torch.Tensor, tokens: torch.Tensor,
-               active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               states: List[torch.Tensor], table_view: torch.Tensor, pos: torch.Tensor,
+               tokens: torch.Tensor, active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """gather -> decode_step -> scatter -> argmax/finiteness for all lanes.
-    Updates ``pools`` in place; returns (next token (slots,) int32, finite
-    (slots,) bool) on the device."""
+    Updates ``pools`` and ``states`` in place; returns (next token (slots,)
+    int32, finite (slots,) bool) on the device."""
 
-    dense = gather_dense(spec, pools, table_view)
+    dense = gather_dense(spec, pools, states, table_view)
     logits, new_cache = model.decode_step(params, dense, tokens[:, None], pos)
     scatter_token(spec, pools, new_cache, table_view, pos, active)
     lg = logits[:, 0].float()
@@ -154,13 +157,16 @@ class ContinuousBatcher:
         return self.cache.free_slot_count() > 0
 
     def admit(self, request: Request, now: float) -> Lane:
-        """Prefill the request's prompt into a free slot: one block-prefill
-        step of its P tokens into a cache of P rounded up to a page
-        multiple rows produces the first greedy token and the slot's
-        pages. The JAX package pads the prompt to that length instead (a
-        static shape for its compiled step); here the prompt goes in
-        unpadded, so that a MoE layer routes the serial path's tokens:
-        padded rows would take expert capacity from the prompt's own."""
+        """Prefill the request's prompt into a free slot: prefill of its P
+        tokens (``ServeConfig.prefill_mode``: one block step, or the token
+        scan of the recurrent families) into a cache of P rounded up to a
+        page multiple rows produces the first greedy token and the slot's
+        pages and state. The JAX package pads the prompt to that length
+        instead (a static shape for its compiled step) and gates the scan
+        at P; here the prompt goes in unpadded, so that a MoE layer routes
+        the serial path's tokens: padded rows would take expert capacity
+        from the prompt's own. The scan reaches the same state either
+        way."""
 
         prompt = np.asarray(request.payload["prompt"], np.int64).reshape(-1)
         target_new = int(request.payload.get("max_new_tokens",
@@ -180,7 +186,7 @@ class ContinuousBatcher:
             cache0 = self.model.init_cache(1, P_pad, dtype=self.dtype)
             last, filled = prefill_mod.chunked_prefill(
                 self.model, self.params, torch.as_tensor(prompt[None]).to(self.device),
-                cache0)
+                cache0, mode=self.cfg.prefill_mode)
             self.cache.write_prefill(slot, filled, P)
         except Exception:
             self.cache.free(slot)
@@ -237,7 +243,7 @@ class ContinuousBatcher:
 
         dev = self.device
         next_tok, finite = fused_step(
-            self.model, self.cache.spec, self.params, self.cache.pools,
+            self.model, self.cache.spec, self.params, self.cache.pools, self.cache.states,
             self.cache.table_view(bucket), torch.as_tensor(pos).to(dev),
             torch.as_tensor(toks).to(dev), torch.as_tensor(active).to(dev))
         self.steps_dispatched += 1

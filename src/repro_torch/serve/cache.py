@@ -9,13 +9,16 @@ when the free list runs dry.
 
 ``build_spec`` finds the time axis by probing ``init_cache`` on the
 ``meta`` device (shapes, no memory) with two batch sizes and two cache
-lengths: the axis that moves with ``cache_len`` is the time axis. Leaves
-without one are recurrent state, which comes with the recurrent families;
-the dense family's cache is all paged.
+lengths: the axis that moves with ``cache_len`` is the time axis (paged).
+Leaves with no such axis are per-slot state (the RWKV and Mamba recurrent
+state) stored dense at ``slots`` lanes. rwkv6's cache is all state;
+zamba2's has both (the shared block's paged K/V, the Mamba state).
 
 Physical page 0 is reserved as a trash page: inactive lanes' page-table
 rows are all-zero, so their decode writes land in the trash and their
-gathers read finite garbage that the batcher discards.
+gathers read finite garbage that the batcher discards. The decode step
+advances the state store in place, inactive lanes too: ``write_prefill``
+writes a slot's whole state row when the slot is taken.
 """
 
 from __future__ import annotations
@@ -38,12 +41,16 @@ class PagedCacheError(RuntimeError):
 
 @dataclasses.dataclass(frozen=True)
 class LeafSpec:
-    """Axis roles for one paged cache leaf."""
+    """Axis roles for one cache leaf. ``time_axis is None``: a state leaf."""
 
     batch_axis: int
-    time_axis: int
+    time_axis: Optional[int]
     rest_shape: Tuple[int, ...]  # non-batch non-time dims, original order
     dtype: torch.dtype
+
+    @property
+    def paged(self) -> bool:
+        return self.time_axis is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,14 +59,21 @@ class CacheSpec:
 
     treedef: Tuple[Tuple[str, ...], ...]
     leaves: Tuple[LeafSpec, ...]
+    paged_idx: Tuple[int, ...]  # leaf indices with a time axis
+    state_idx: Tuple[int, ...]
     page_size: int
 
     def token_view_bytes(self) -> int:
         """Bytes per (lane, token) of a gathered dense view: the unit the
-        bucket planner multiplies by ``slots x bucket_len``."""
+        bucket planner multiplies by ``slots x bucket_len`` (0 for a cache
+        of state alone)."""
 
-        return sum(int(np.prod(ls.rest_shape, dtype=np.int64)) * ls.dtype.itemsize
-                   for ls in self.leaves)
+        return sum(int(np.prod(self.leaves[i].rest_shape, dtype=np.int64))
+                   * self.leaves[i].dtype.itemsize for i in self.paged_idx)
+
+    def state_bytes(self, slots: int) -> int:
+        return sum(slots * int(np.prod(self.leaves[i].rest_shape, dtype=np.int64))
+                   * self.leaves[i].dtype.itemsize for i in self.state_idx)
 
 
 def _axis_diff(a: Sequence[int], b: Sequence[int]) -> List[int]:
@@ -71,9 +85,14 @@ def _probe(model, batch: int, cache_len: int, dtype) -> List[torch.Tensor]:
                                             device="meta"))[0]
 
 
-def build_spec(model, *, page_size: int, dtype) -> CacheSpec:
+def build_spec(model, *, page_size: int, dtype, allow_unpaged: bool = True) -> CacheSpec:
     """Classify every cache leaf's axes by probing ``model.init_cache`` on
-    the ``meta`` device. No device memory is touched."""
+    the ``meta`` device. No device memory is touched.
+
+    A pure-recurrent cache (every leaf constant-size state) has nothing to
+    page: paging degenerates to the dense per-slot state store, which
+    already scales with slots rather than length. ``allow_unpaged=False``
+    rejects that instead."""
 
     if page_size < 1:
         raise ValueError("page_size must be >= 1")
@@ -91,15 +110,18 @@ def build_spec(model, *, page_size: int, dtype) -> CacheSpec:
                 f"cache leaf {tuple(ref.shape)} has {len(bdiff)} batch-dependent "
                 "axes; paged serving needs exactly one")
         tdiff = _axis_diff(ref.shape, ll.shape)
-        if len(tdiff) != 1:
+        if len(tdiff) > 1:
             raise ValueError(
-                f"cache leaf {tuple(ref.shape)} has {len(tdiff)} cache_len-dependent "
-                "axes; the port pages attention caches only (recurrent state "
-                "comes with the recurrent families)")
-        b_ax, t_ax = bdiff[0], tdiff[0]
+                f"cache leaf {tuple(ref.shape)} has {len(tdiff)} cache_len-dependent axes")
+        b_ax = bdiff[0]
+        t_ax = tdiff[0] if tdiff else None
         rest = tuple(d for i, d in enumerate(ref.shape) if i not in (b_ax, t_ax))
         specs.append(LeafSpec(b_ax, t_ax, rest, ref.dtype))
-    return CacheSpec(treedef, tuple(specs), page_size)
+    paged = tuple(i for i, ls in enumerate(specs) if ls.paged)
+    state = tuple(i for i, ls in enumerate(specs) if not ls.paged)
+    if not paged and not allow_unpaged:
+        raise ValueError("no cache leaf depends on cache_len: nothing to page")
+    return CacheSpec(treedef, tuple(specs), paged, state, page_size)
 
 
 def dense_cache_bytes(model, batch: int, cache_len: int, dtype) -> int:
@@ -133,19 +155,33 @@ def _bt_first(leaf: torch.Tensor, ls: LeafSpec) -> torch.Tensor:
     return torch.movedim(leaf, (ls.batch_axis, ls.time_axis), (0, 1))
 
 
+def lane_mask(ndim: int, batch_axis: int, lanes: torch.Tensor) -> torch.Tensor:
+    """A (B,) bool as a mask that broadcasts over an ``ndim`` leaf's batch
+    axis."""
+    shape = [1] * ndim
+    shape[batch_axis] = lanes.shape[0]
+    return lanes.reshape(shape)
+
+
 def gather_dense(spec: CacheSpec, pools: List[torch.Tensor],
-                 table_view: torch.Tensor) -> Tree:
+                 states: List[torch.Tensor], table_view: torch.Tensor) -> Tree:
     """Materialize a dense, contiguous cache view of ``table_view.shape[1] *
-    page_size`` tokens per lane from the pools. Inactive lanes (all-zero
-    table rows) read the trash page: finite garbage, discarded by the
-    caller."""
+    page_size`` tokens per lane from the pools, beside the state store
+    itself, which the decode step advances in place. Inactive lanes
+    (all-zero table rows) read the trash page: finite garbage, discarded by
+    the caller. An inactive lane's state row is a free slot's: the step
+    advances it and nothing reads it, since ``write_prefill`` writes the
+    whole row when the slot is taken again (where the JAX package commits
+    the state of the active lanes only)."""
 
     nv = table_view.shape[1]
-    dense = []
-    for pool, ls in zip(pools, spec.leaves):
+    dense: List[Optional[torch.Tensor]] = [None] * len(spec.leaves)
+    for pool, i in zip(pools, spec.paged_idx):
         v = pool[table_view]  # (slots, nv, page, *rest)
         v = v.reshape(v.shape[0], nv * spec.page_size, *v.shape[3:])
-        dense.append(v.permute(_dense_perm(ls)).contiguous())
+        dense[i] = v.permute(_dense_perm(spec.leaves[i])).contiguous()
+    for state, i in zip(states, spec.state_idx):
+        dense[i] = state
     return cm.tree_unflatten(spec.treedef, dense)
 
 
@@ -153,8 +189,9 @@ def scatter_token(spec: CacheSpec, pools: List[torch.Tensor], new_cache: Tree,
                   table_view: torch.Tensor, pos: torch.Tensor,
                   active: torch.Tensor) -> None:
     """Write back one decoded token per lane: column ``pos[lane]`` of every
-    leaf of ``new_cache`` goes into physical page ``table[lane, pos //
-    page]``; inactive lanes write the trash page.
+    paged leaf of ``new_cache`` goes into physical page ``table[lane, pos //
+    page]``; inactive lanes write the trash page. The state leaves need no
+    write: the decode step advanced the store in place (``gather_dense``).
 
     The pools are updated in place. This stands in for the JAX package's
     donated pool buffers, which let XLA update the pages in place inside
@@ -168,8 +205,8 @@ def scatter_token(spec: CacheSpec, pools: List[torch.Tensor], new_cache: Tree,
     page_col = table_view[lanes, pos // pg]
     page_col = torch.where(active, page_col, torch.zeros_like(page_col))
     off = pos % pg
-    for pool, leaf, ls in zip(pools, leaves, spec.leaves):
-        col = _bt_first(leaf, ls)[lanes, pos]  # (B, *rest)
+    for pool, i in zip(pools, spec.paged_idx):
+        col = _bt_first(leaves[i], spec.leaves[i])[lanes, pos]  # (B, *rest)
         pool[page_col, off] = col.to(pool.dtype)
 
 
@@ -208,10 +245,16 @@ class PagedCache:
         cap = min(self.max_pages, 1 + (initial_pages if initial_pages is not None
                                        else slots))
         self.pools: List[torch.Tensor] = [
-            torch.zeros((cap, page_size, *ls.rest_shape), dtype=ls.dtype,
-                        device=self.device)
-            for ls in self.spec.leaves
+            torch.zeros((cap, page_size, *self.spec.leaves[i].rest_shape),
+                        dtype=self.spec.leaves[i].dtype, device=self.device)
+            for i in self.spec.paged_idx
         ]
+        self.states: List[torch.Tensor] = []
+        for i in self.spec.state_idx:
+            ls = self.spec.leaves[i]
+            shape = list(ls.rest_shape)
+            shape.insert(ls.batch_axis, slots)
+            self.states.append(torch.zeros(shape, dtype=ls.dtype, device=self.device))
         self._capacity = cap
         self._free_pages: List[int] = list(range(cap - 1, 0, -1))  # pop() -> low ids first
         self._free_slots: List[int] = list(range(slots - 1, -1, -1))
@@ -227,9 +270,9 @@ class PagedCache:
     # -- accounting ----------------------------------------------------------
 
     def allocated_bytes(self) -> int:
-        """Live allocation: pools at current capacity + table."""
+        """Live allocation: pools at current capacity + state store + table."""
 
-        total = sum(x.numel() * x.element_size() for x in self.pools)
+        total = sum(x.numel() * x.element_size() for x in self.pools + self.states)
         return int(total + self.table.size * self.table.itemsize)
 
     def live_tokens(self) -> int:
@@ -318,14 +361,17 @@ class PagedCache:
 
     def write_prefill(self, slot: int, dense_cache: Tree, n_tokens: int) -> None:
         """Commit a B=1 prefill cache (``n_tokens`` valid, padded to a page
-        multiple) into slot's pages, and set its length."""
+        multiple) into slot's pages and state row, and set its length."""
 
         n_pages = math.ceil(n_tokens / self.page_size)
         self.reserve(slot, n_tokens)
         leaves = cm.tree_flatten(dense_cache)[0]
         pages = torch.as_tensor(self.table[slot, :n_pages]).to(self.device, torch.int64)
-        for pool, leaf, ls in zip(self.pools, leaves, self.spec.leaves):
-            v = _bt_first(leaf, ls)[0, : n_pages * self.page_size]
+        for pool, i in zip(self.pools, self.spec.paged_idx):
+            v = _bt_first(leaves[i], self.spec.leaves[i])[0, : n_pages * self.page_size]
             v = v.reshape(n_pages, self.page_size, *v.shape[1:])
             pool[pages] = v.to(pool.dtype)
+        for state, i in zip(self.states, self.spec.state_idx):
+            ax = self.spec.leaves[i].batch_axis
+            state.select(ax, slot).copy_(leaves[i].select(ax, 0))
         self.seq_lens[slot] = n_tokens

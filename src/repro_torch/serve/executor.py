@@ -223,7 +223,7 @@ class ServeExecutor:
             toks = greedy_generate(
                 self.batcher.model, self.batcher.params,
                 torch.as_tensor(prompt[None]), lane.target_new, cache_len,
-                dtype=self.batcher.dtype)
+                dtype=self.batcher.dtype, prefill_mode=self.cfg.prefill_mode)
             self._record(req, STATUS_FALLBACK, [int(t) for t in toks[0]],
                          lane.admitted_t, "nonfinite logits in batched path",
                          slot=lane.slot, first_token_t=lane.first_token_t)

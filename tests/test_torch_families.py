@@ -1,6 +1,7 @@
-"""The port's moe family and dense family with MLA, and the configs that
-join with them (qwen2-moe-a2.7b, kimi-k2-1t-a32b, minicpm3-4b, gemma2-9b,
-gemma3-27b), against the JAX package on each config's ``SMOKE``, on the
+"""The port's moe family and dense family with MLA, the recurrent ssm and
+hybrid families, and the configs that join with them (qwen2-moe-a2.7b,
+kimi-k2-1t-a32b, minicpm3-4b, gemma2-9b, gemma3-27b, rwkv6-1.6b,
+zamba2-7b), against the JAX package on each config's ``SMOKE``, on the
 JAX weights carried over by ``repro_torch.convert`` and tokens from one
 numpy seed:
 
@@ -10,14 +11,21 @@ numpy seed:
 * ``forward`` logits and aux, ``lm_loss`` (which adds the MoE aux),
   ``per_example`` (which drops it) and the gradient of ``lm_loss`` in
   every parameter, within ``test_torch_model_decode.py``'s 1e-4;
-* block prefill, then one-token decode at per-lane positions: logits and
-  every cache leaf within 1e-4;
+* block prefill (the recurrent families: scan prefill at ragged lane
+  lengths), then one-token decode at per-lane positions: logits and every
+  cache leaf within 1e-4;
+* the recurrent caches' state leaves in the paged cache, the refusal of
+  block prefill for them, scan prefill of a padded prompt equal to the
+  unpadded one, and their decode against the training forward at the
+  reference's 2e-2;
 * continuous batching token for token equal to the port's serial path
-  and to the JAX executor (qwen2-moe, minicpm3);
+  and to the JAX executor, and the executor's memory accounting equal to
+  JAX's (qwen2-moe, minicpm3, rwkv6, zamba2);
 * one SAMA meta step through ``MetaLearner`` from one state, at
   ``test_torch_sama.py``'s tolerances, with warm rows and base Adam eps
-  1e-3 (qwen2-moe, minicpm3);
-* an MoE learner's checkpoint across the packages, bitwise;
+  1e-3 (the same four);
+* an MoE learner's and a hybrid learner's checkpoint across the packages,
+  bitwise;
 * the families not ported yet raise, naming their ROADMAP item;
 * the train and serve CLIs on the CPU for the new archs, and their
   refusal without a card.
@@ -47,8 +55,9 @@ from repro_torch.models import transformer as tf  # noqa: E402
 
 from test_torch_sama import _np_tree, _run_pair  # noqa: E402
 
-NEW = ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "minicpm3-4b", "gemma2-9b", "gemma3-27b"]
-SERVED = ["qwen2-moe-a2.7b", "minicpm3-4b"]
+RECURRENT = ["rwkv6-1.6b", "zamba2-7b"]
+NEW = ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "minicpm3-4b", "gemma2-9b", "gemma3-27b"] + RECURRENT
+SERVED = ["qwen2-moe-a2.7b", "minicpm3-4b"] + RECURRENT
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 _PAIRS = {}
@@ -90,7 +99,7 @@ def _shapes(t):
 def test_registry_holds_the_ported_families_archs():
     assert configs.list_archs() == sorted(NEW + ["gemma3-1b", "bert-base"])
     for name in configs.list_archs():
-        assert configs.get_config(name).family in ("dense", "moe", "encoder")
+        assert configs.get_config(name).family in ("dense", "moe", "encoder", "ssm", "hybrid")
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -103,7 +112,8 @@ def test_config_copy_matches_reference(arch):
 
 # parameters from the JAX package's init under jax.eval_shape
 FULL_PARAMS = {"qwen2-moe-a2.7b": 14.00e9, "kimi-k2-1t-a32b": 1027e9, "minicpm3-4b": 4.07e9,
-               "gemma2-9b": 9.24e9, "gemma3-27b": 27.0e9}
+               "gemma2-9b": 9.24e9, "gemma3-27b": 27.0e9, "rwkv6-1.6b": 1.4499e9,
+               "zamba2-7b": 6.6364e9}
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -121,13 +131,12 @@ def test_full_size_param_and_cache_shapes_match(arch):
     assert _shapes(tm.init_cache(4, 1024, device="meta")) == _shapes(jcache)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b", "whisper-small",
-                                  "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
 def test_unported_families_raise_naming_their_roadmap_item(arch):
     jcfg = jconfigs.get_smoke_config(arch)
     cfg = configs.ArchConfig(**{f.name: getattr(jcfg, f.name)
                                 for f in dataclasses.fields(configs.ArchConfig)})
-    item = "4b" if cfg.family in ("ssm", "hybrid") else "4c"
+    item = "4c"
     for call in (lambda: tf.init_params(cfg, 0, device="cpu"),
                  lambda: tf.init_cache(cfg, 1, 8, device="cpu"),
                  lambda: tf.forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)}),
@@ -146,7 +155,8 @@ def test_unported_families_raise_naming_their_roadmap_item(arch):
 @pytest.mark.parametrize("arch", NEW)
 def test_forward_losses_and_gradient_match_jax(arch):
     jm, jparams, tm, tparams = _pair(arch)
-    toks = _tokens(tm.cfg, (2, 12), 4)
+    # a recurrent forward takes whole chunks (rwkv6 SMOKE: 8 tokens)
+    toks = _tokens(tm.cfg, (2, 16 if arch in RECURRENT else 12), 4)
     jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
     jlogits, jaux = jm.forward(jparams, jb)
     tlogits, taux = tm.forward(tparams, tb)
@@ -173,18 +183,31 @@ def test_forward_losses_and_gradient_match_jax(arch):
 @pytest.mark.parametrize("arch", NEW)
 def test_prefill_then_lane_decode_match_jax(arch):
     """Block prefill of B=3 prompts from position 0, then three one-token
-    steps at per-lane positions, each feeding the cache forward."""
+    steps at per-lane positions, each feeding the cache forward. A
+    recurrent family prefills by each package's scan (``chunked_prefill(
+    mode="scan")``) at ragged lane lengths 10, 6 and 8, and decodes on from
+    there."""
     jm, jparams, tm, tparams = _pair(arch)
     B, P, CL = 3, 10, 24
     toks = _tokens(tm.cfg, (B, P), 1)
-    jl, jc = jm.decode_step(jparams, jm.init_cache(B, CL, jnp.float32), jnp.asarray(toks),
-                            jnp.asarray(0, jnp.int32))
     tc = tm.init_cache(B, CL, torch.float32)
-    tl, same = tm.decode_step(tparams, tc, torch.from_numpy(toks).long(), 0)
+    pos = np.array([10, 6, 8], np.int32)
+    if arch in RECURRENT:
+        from repro.serve import prefill as jprefill
+        from repro_torch.serve import prefill as tprefill
+
+        jl, jc = jprefill.chunked_prefill(jm, jparams, jnp.asarray(toks),
+                                          jm.init_cache(B, CL, jnp.float32),
+                                          lengths=jnp.asarray(pos), mode="scan")
+        tl, same = tprefill.chunked_prefill(tm, tparams, torch.from_numpy(toks).long(), tc,
+                                            lengths=torch.from_numpy(pos), mode="scan")
+    else:
+        jl, jc = jm.decode_step(jparams, jm.init_cache(B, CL, jnp.float32), jnp.asarray(toks),
+                                jnp.asarray(0, jnp.int32))
+        tl, same = tm.decode_step(tparams, tc, torch.from_numpy(toks).long(), 0)
     assert same is tc
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     _assert_tree_close(tc, jc)
-    pos = np.array([10, 6, 8], np.int32)
     nxt = _tokens(tm.cfg, (B, 1), 2)
     for _ in range(3):
         jl, jc = jm.decode_step(jparams, jc, jnp.asarray(nxt), jnp.asarray(pos))
@@ -308,6 +331,173 @@ def test_paged_cache_pages_the_mla_and_moe_leaves():
         assert all((ls.batch_axis, ls.time_axis) == (1, 2) for ls in spec.leaves)
 
 
+def test_paged_cache_holds_the_recurrent_state_per_slot():
+    """build_spec, as the reference's (tests/test_serve.py): rwkv6's cache is
+    state alone (nothing paged, no bytes per token, refused with
+    ``allow_unpaged=False``); zamba2's pages the shared block's K/V and holds
+    the Mamba state per slot, batch axis 2 in the groups' (G, k, B, ...)
+    leaves. The store is ``slots`` lanes of each state leaf, counted in the
+    allocated bytes."""
+    tm = Model(configs.get_smoke_config("rwkv6-1.6b"), device="cpu")
+    spec = serve.build_spec(tm, page_size=4, dtype=torch.float32)
+    assert spec.paged_idx == () and len(spec.state_idx) == 3
+    assert spec.token_view_bytes() == 0
+    assert [ls.batch_axis for ls in spec.leaves] == [1, 1, 1]
+    with pytest.raises(ValueError, match="nothing to page"):
+        serve.build_spec(tm, page_size=4, dtype=torch.float32, allow_unpaged=False)
+    pc = serve.PagedCache(tm, slots=3, page_size=4, max_len=16, dtype=torch.float32)
+    assert pc.pools == [] and [tuple(x.shape) for x in pc.states] == [
+        (2, 3, 4, 32, 32), (2, 3, 128), (2, 3, 128)]
+    assert pc.allocated_bytes() == spec.state_bytes(3) + pc.table.nbytes
+
+    tm = Model(configs.get_smoke_config("zamba2-7b"), device="cpu")
+    spec = serve.build_spec(tm, page_size=4, dtype=torch.bfloat16)
+    names = ["/".join(p) for p in spec.treedef]
+    assert names == ["attn_kv/k", "attn_kv/v", "groups/conv", "groups/ssm", "head/conv",
+                     "head/ssm"]
+    assert spec.paged_idx == (0, 1) and spec.state_idx == (2, 3, 4, 5)
+    assert [(ls.batch_axis, ls.time_axis) for ls in spec.leaves] == [
+        (1, 2), (1, 2), (2, None), (2, None), (1, None), (1, None)]
+    assert spec.token_view_bytes() == 2 * 2 * 64 * 2  # k and v: G 1 x KV 2 x Dh 64, bf16
+
+
+def test_state_store_commits_only_the_active_lanes():
+    """gather_dense hands the decode step the state store itself, which the
+    step advances in place for every lane. What an inactive lane's step
+    writes into its free slot's row is never read: write_prefill writes
+    the whole row when the slot is taken again, and leaves the other
+    lanes' rows as they were."""
+    tm = Model(configs.get_smoke_config("zamba2-7b"), device="cpu")
+    pc = serve.PagedCache(tm, slots=2, page_size=4, max_len=16, dtype=torch.float32)
+    pc.set_len(pc.alloc_slot(), 3)
+    view = pc.table_view(4)
+    dense = serve.gather_dense(pc.spec, pc.pools, pc.states, view)
+    names = ["/".join(pc.spec.treedef[i]) for i in pc.spec.state_idx]
+    by_name = dict(zip(names, pc.states))
+    axis = {"groups/ssm": 2, "groups/conv": 2, "head/ssm": 1, "head/conv": 1}
+    for name in names:
+        group, leaf = name.split("/")
+        assert dense[group][leaf] is by_name[name]
+        # lane 0 live; lane 1 a free slot's row, which an inactive step advanced
+        by_name[name].select(axis[name], 0).fill_(2.0)
+        by_name[name].select(axis[name], 1).fill_(float("nan"))
+    prefill = tm.init_cache(1, 4, torch.float32)
+    for name in names:
+        group, leaf = name.split("/")
+        prefill[group][leaf].fill_(5.0)
+    assert pc.alloc_slot() == 1
+    pc.write_prefill(1, prefill, 3)
+    for name in names:
+        assert torch.all(by_name[name].select(axis[name], 1) == 5.0), name
+        assert torch.all(by_name[name].select(axis[name], 0) == 2.0), name
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_block_prefill_is_refused_for_recurrent_families(arch):
+    _, _, tm, tparams = _pair(arch)
+    prompt = torch.from_numpy(_tokens(tm.cfg, (1, 4), 0)).long()
+    with pytest.raises(ValueError, match="order-unsafe"):
+        serve.chunked_prefill(tm, tparams, prompt, tm.init_cache(1, 8, torch.float32),
+                              mode="block")
+    with pytest.raises(ValueError, match="recurrent: decode_step advances one token"):
+        tm.decode_step(tparams, tm.init_cache(1, 8, torch.float32), prompt, 0)
+    from repro_torch.serve import prefill
+
+    assert prefill.default_mode(tm.cfg) == "scan"
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_matches_the_training_forward(arch):
+    """Token by token from an empty cache, the decode's logits equal the
+    chunked forward's over the same prefix, at the reference's 2e-2
+    (tests/test_arch_smoke.py)."""
+    _, _, tm, tparams = _pair(arch)
+    seq = 16
+    toks = torch.from_numpy(_tokens(tm.cfg, (1, seq), 9)).long()
+    full, _ = tm.forward(tparams, {"tokens": toks})
+    cache = tm.init_cache(1, seq, torch.float32)
+    steps = [tm.decode_step(tparams, cache, toks[:, t:t + 1], t)[0][:, 0] for t in range(seq)]
+    np.testing.assert_allclose(torch.stack(steps, 1).numpy(), full.detach().numpy(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_scan_prefill_of_a_padded_prompt_equals_the_unpadded_one(arch):
+    """JAX's admit right-pads the prompt to a page multiple and gates the
+    scan at its length (``src/repro/serve/batcher.py:197-206``); the port
+    prefills the P tokens unpadded. The two reach the same state and
+    first-token logits: the port's padded and unpadded scans bitwise, and
+    JAX's padded scan within 1e-4."""
+    from repro.serve import prefill as jprefill
+
+    jm, jparams, tm, tparams = _pair(arch)
+    P, page = 5, 8
+    prompt = _tokens(tm.cfg, (1, P), 21)
+    padded = np.zeros((1, page), np.int32)
+    padded[:, :P] = prompt
+    caches, lasts = [], []
+    for toks, lengths in ((prompt, None), (padded, torch.tensor([P]))):
+        cache = tm.init_cache(1, page, torch.float32)
+        last, _ = serve.chunked_prefill(tm, tparams, torch.from_numpy(toks).long(), cache,
+                                        lengths=lengths)
+        caches.append(cache)
+        lasts.append(last)
+    assert torch.equal(lasts[0], lasts[1])
+    for a, b in zip(tree.tree_leaves(caches[0]), tree.tree_leaves(caches[1])):
+        assert torch.equal(a, b)
+    jlast, jcache = jprefill.chunked_prefill(jm, jparams, jnp.asarray(padded),
+                                             jm.init_cache(1, page, jnp.float32),
+                                             lengths=jnp.asarray([P], jnp.int32), mode="scan")
+    np.testing.assert_allclose(lasts[0].numpy(), np.asarray(jlast), **TOL)
+    _assert_tree_close(caches[0], jcache)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_convert_carries_a_recurrent_cache_mid_sequence(arch, dtype):
+    """A JAX cache after three decode steps (zamba2: the (G, k, B, ...)
+    groups' state, the head's, the shared block's K/V; rwkv6: S in f32 and
+    the token-shift rows in the cache dtype) crosses by
+    ``convert.params_from_jax`` with its dtypes, and the port's next two
+    steps from it give JAX's logits and cache (f32 within 1e-4; bf16
+    within the reference's 2e-2)."""
+    jm, jparams, tm, tparams = _pair(arch)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    toks = _tokens(tm.cfg, (2, 5), 3)
+    jc = jm.init_cache(2, 8, jdt)
+    for t in range(3):
+        _, jc = jm.decode_step(jparams, jc, jnp.asarray(toks[:, t:t + 1]),
+                               jnp.asarray(t, jnp.int32))
+    tc = convert.params_from_jax(_np_tree(jc), device="cpu")
+    assert [x.dtype for x in tree.tree_leaves(tc)] == [
+        tdt if x.dtype == jdt else torch.float32 for x in tree.tree_leaves(jc)]
+    tol = TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    for t in range(3, 5):
+        jl, jc = jm.decode_step(jparams, jc, jnp.asarray(toks[:, t:t + 1]),
+                                jnp.asarray(t, jnp.int32))
+        tl, tc = tm.decode_step(tparams, tc, torch.from_numpy(toks[:, t:t + 1]).long(), t)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
+        _assert_tree_close(tc, jc, **tol)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_executor_memory_stats_match_jax(arch):
+    """The continuous-batching run's cache accounting (allocated and peak
+    bytes: pools, state store and page table; growth events, buckets)
+    equals the JAX executor's on the same requests."""
+    jm, jparams, tm, tparams = _pair(arch)
+    rng = np.random.default_rng(0)
+    prompts = [_tokens(tm.cfg, (int(n),), i) for i, n in enumerate(rng.integers(2, 13, 6))]
+    scfg = dict(slots=3, page_size=4, max_len=24, max_new_tokens=4)
+    stats = []
+    for pkg, model, params in ((serve, tm, tparams), (jserve, jm, jparams)):
+        ex = pkg.ServeExecutor(model, params, pkg.ServeConfig(**scfg))
+        for p in prompts:
+            ex.submit(p, max_new_tokens=4)
+        stats.append(ex.run().memory)
+    assert stats[0] == stats[1]
+
+
 # ---------------------------------------------------------------------------
 # training and checkpoints
 # ---------------------------------------------------------------------------
@@ -361,6 +551,29 @@ def test_moe_checkpoint_crosses_packages_bitwise(tmp_path):
     tlearner.step(tree.tree_map(torch.from_numpy, base), tree.tree_map(torch.from_numpy, meta))
     nu = tlearner.state.base_opt_state.nu["layers"]["moe"]["experts"]["down"]
     assert nu.shape[:2] == (2, 4) and bool(torch.any(nu != 0))
+    jstate = jlearner.load(tlearner.save(str(tmp_path / "torch_ck")))
+    _assert_states_equal(tlearner.state, jstate)
+    back = api.MetaLearner(problems.make_data_optimization_spec(tm.per_example), **kw)
+    back.state = convert.state_from_jax(_np_tree(jlearner.state), device="cpu")
+    _assert_states_equal(back.load(jlearner.save(str(tmp_path / "jax_ck"))), jstate)
+
+
+def test_hybrid_checkpoint_crosses_packages_bitwise(tmp_path):
+    """zamba2's doubly stacked ``mamba_groups`` (groups, blocks, ...) and its
+    shared block through a port learner's save, the JAX learner's load and
+    back, after one meta step (the Adam moments nonzero), every leaf
+    exactly equal."""
+    jm, jparams, tm, _ = _pair("zamba2-7b")
+    kw = dict(base_opt="adam", base_lr=1e-3, meta_opt="adam", meta_lr=1e-3, method="sama",
+              unroll_steps=2)
+    jlearner = japi.MetaLearner(jproblems.make_data_optimization_spec(jm.per_example), **kw)
+    jlearner.init(jparams, jproblems.init_data_optimization_lam(jax.random.PRNGKey(1)))
+    tlearner = api.MetaLearner(problems.make_data_optimization_spec(tm.per_example), **kw)
+    tlearner.state = convert.state_from_jax(_np_tree(jlearner.state), device="cpu")
+    base, meta = _lm_warm_batches(tm.cfg)(0)
+    tlearner.step(tree.tree_map(torch.from_numpy, base), tree.tree_map(torch.from_numpy, meta))
+    nu = tlearner.state.base_opt_state.nu["mamba_groups"]["mamba"]["in_proj"]
+    assert nu.shape[:2] == (1, 2) and bool(torch.any(nu != 0))
     jstate = jlearner.load(tlearner.save(str(tmp_path / "torch_ck")))
     _assert_states_equal(tlearner.state, jstate)
     back = api.MetaLearner(problems.make_data_optimization_spec(tm.per_example), **kw)

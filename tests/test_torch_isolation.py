@@ -57,7 +57,8 @@ def test_package_imports_with_jax_unavailable():
             "import repro_torch.perf.bench_memory_vs_modelsize\n"
             "import repro_torch.perf.bench_data_pruning, repro_torch.perf.bench_biased_regression\n"
             "from repro_torch.serve import ScoreAPI, ScoreStore\n"
-            "from repro_torch.models import Model\n"
+            "from repro_torch.models import Model, ssm\n"
+            "from repro_torch.serve import prefill\n"
             "from repro_torch import configs\n"
             "m = Model(configs.get_smoke_config('gemma3-1b'), device='cpu')\n"
             "assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules\n"
@@ -89,7 +90,8 @@ def _batch_iterator(**kw):
 
 @pytest.mark.parametrize("entry", ["init_params", "init_cache", "params_from_jax",
                                    "bert_init_params", "Model.init", "init_data_optimization_lam",
-                                   "BatchIterator"])
+                                   "BatchIterator", "rwkv_init_cache", "zamba_init_params",
+                                   "zamba_init_cache"])
 def test_lower_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, entry):
     from repro_torch import configs, convert
     from repro_torch.core import problems
@@ -99,6 +101,7 @@ def test_lower_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch
 
     cfg = configs.get_smoke_config("gemma3-1b")
     bert = configs.get_smoke_config("bert-base")
+    rwkv, zamba = (configs.get_smoke_config(a) for a in ("rwkv6-1.6b", "zamba2-7b"))
     call = {"init_params": lambda **kw: tf.init_params(cfg, 0, **kw),
             "init_cache": lambda **kw: tf.init_cache(cfg, 1, 8, **kw),
             "params_from_jax": lambda **kw: convert.params_from_jax(
@@ -107,7 +110,10 @@ def test_lower_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch
             "Model.init": lambda **kw: Model(bert, **kw).init(0),
             "init_data_optimization_lam": lambda **kw: problems.init_data_optimization_lam(
                 0, **kw),
-            "BatchIterator": _batch_iterator}[entry]
+            "BatchIterator": _batch_iterator,
+            "rwkv_init_cache": lambda **kw: tf.init_cache(rwkv, 1, 8, **kw),
+            "zamba_init_params": lambda **kw: tf.init_params(zamba, 0, **kw),
+            "zamba_init_cache": lambda **kw: tf.init_cache(zamba, 1, 8, **kw)}[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()

@@ -169,13 +169,13 @@ def test_gather_scatter_round_trip(smoke):
     s0 = pc.alloc_slot()
     pc.set_len(s0, 6)
     view = pc.table_view(8)
-    dense = serve.gather_dense(pc.spec, pc.pools, view)
+    dense = serve.gather_dense(pc.spec, pc.pools, pc.states, view)
     assert dense["kv"]["k"].shape == (tm.cfg.num_layers, 2, 8, 1, tm.cfg.head_dim)
     dense["kv"]["k"][:, 0, 6] = 1.5
     dense["kv"]["k"][:, 1, 0] = 7.0  # inactive lane 1
     pos = torch.tensor([6, 0])
     serve.scatter_token(pc.spec, pc.pools, dense, view, pos, torch.tensor([True, False]))
-    again = serve.gather_dense(pc.spec, pc.pools, view)
+    again = serve.gather_dense(pc.spec, pc.pools, pc.states, view)
     assert torch.all(again["kv"]["k"][:, 0, 6] == 1.5)
     assert torch.all(pc.pools[0][0, 0] == 7.0)  # trash page 0, offset 0
 
