@@ -1,7 +1,7 @@
-"""Architecture config registry of the port: the architectures of the
-families it runs (dense, with and without MLA, moe, encoder, and the
-recurrent ssm and hybrid families). The audio and vision architectures
-join with their families."""
+"""Architecture config registry of the port: every architecture of the
+JAX package's registry (dense, with and without MLA, moe, encoder, the
+recurrent ssm and hybrid families, the audio encoder-decoder and the
+vision model with gated cross-attention)."""
 
 import importlib
 
@@ -10,10 +10,12 @@ from repro_torch.configs.base import ArchConfig
 _MODULES = {
     "gemma3-1b": "gemma3_1b",
     "zamba2-7b": "zamba2_7b",
+    "whisper-small": "whisper_small",
     "kimi-k2-1t-a32b": "kimi_k2",
     "rwkv6-1.6b": "rwkv6_1b6",
     "gemma2-9b": "gemma2_9b",
     "qwen2-moe-a2.7b": "qwen2_moe",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
     "gemma3-27b": "gemma3_27b",
     "minicpm3-4b": "minicpm3_4b",
     "bert-base": "bert_base",

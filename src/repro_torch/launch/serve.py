@@ -9,7 +9,9 @@ sustained QPS, statuses and paged-cache memory: the keys of
 ``repro.launch.serve``'s payload. ``--serial`` runs the same requests
 through the serial dense-cache ``greedy_generate`` reference loop. The
 weights and the prompts are random, from ``--seed``. It runs on the card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given. As in the reference, serving reads no
+audio or image: a whisper or llama-3.2-vision request cross-attends to the
+cache's zero ``cross_kv``.
 """
 
 from __future__ import annotations

@@ -60,7 +60,9 @@ from repro_torch.models import Model
 
 def make_batch_fn(cfg, seq: int, device, rng: np.random.Generator):
     """``make_batch(batch, unroll=None)``: token sequences from the LM
-    stream and, for an encoder, random labels, as ``repro.launch.train``
+    stream; for an encoder, random labels; for the audio and vision
+    families, zero ``frames`` (encoder_seq, d_model) and ``patches``
+    (vision_tokens, vision_dim) f32 per sequence: as ``repro.launch.train``
     draws them."""
 
     lm_cfg = data.LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq)
@@ -71,9 +73,15 @@ def make_batch_fn(cfg, seq: int, device, rng: np.random.Generator):
     def make_batch(batch, unroll=None):
         toks = data.lm_batch(lm_cfg, rng, batch * (unroll or 1))["tokens"]
         out = {"tokens": put(toks.reshape((unroll, batch, seq) if unroll else (batch, seq)))}
+        lead = (unroll, batch) if unroll else (batch,)
+        if cfg.family == "vlm":
+            out["patches"] = torch.zeros(lead + (cfg.vision_tokens, cfg.vision_dim),
+                                         dtype=torch.float32, device=device)
+        if cfg.family == "audio":
+            out["frames"] = torch.zeros(lead + (cfg.encoder_seq, cfg.d_model),
+                                        dtype=torch.float32, device=device)
         if cfg.family == "encoder":
-            yshape = (unroll, batch) if unroll else (batch,)
-            out["y"] = put(rng.integers(0, cfg.num_labels, size=yshape).astype(np.int32))
+            out["y"] = put(rng.integers(0, cfg.num_labels, size=lead).astype(np.int32))
         return out
 
     return make_batch

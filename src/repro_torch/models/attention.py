@@ -1,7 +1,9 @@
 """Attention, after ``src/repro/models/attention.py``: GQA
 self-attention (the training branch through the ``flash_attention``
-kernel, the decode branch over an explicit KV cache) and MLA (multi-head
-latent attention over a compressed cache, plain ops in both packages).
+kernel, the decode branch over an explicit KV cache), MLA (multi-head
+latent attention over a compressed cache) and cross-attention (whisper's
+decoder, llama-3.2-vision's gated layers), the last two plain ops in both
+packages.
 
 Layout conventions (the JAX package's):
   activations x: (B, S, D)
@@ -11,8 +13,6 @@ Layout conventions (the JAX package's):
 
 ``local_flag`` is a Python bool per layer (the port walks the layers in a
 Python loop where JAX scans them with a traced flag).
-
-Cross-attention comes with the audio and vision families.
 """
 
 from __future__ import annotations
@@ -299,3 +299,55 @@ def init_mla_cache(cfg, batch: int, length: int, dtype=torch.bfloat16, *, device
         "krope": torch.zeros(lead + (batch, length, cfg.qk_rope_head_dim), dtype=dtype,
                              device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper decoder, llama-3.2-vision layers)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(cfg, gen, *, dtype=torch.float32, device, lead: Tuple[int, ...] = (),
+                    kv_dim: Optional[int] = None):
+    """Queries from the d_model stream, keys and values from memory rows of
+    ``kv_dim`` (default d_model)."""
+    H, KV, Dh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    kv_dim = kv_dim or D
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    return {
+        "wq": cm.dense_init(gen, (D, H * Dh), **kw),
+        "wk": cm.dense_init(gen, (kv_dim, KV * Dh), **kw),
+        "wv": cm.dense_init(gen, (kv_dim, KV * Dh), **kw),
+        "wo": cm.dense_init(gen, (H * Dh, D), **kw),
+    }
+
+
+def cross_attention(cfg, p, x, *, memory=None, memory_kv=None):
+    """x (B, S, D) attends, unmasked, over ``memory`` (B, M, D_mem)
+    (encoder or vision states; K and V projected in memory's dtype, then
+    cast to x's) or over precomputed ``memory_kv`` {"k", "v"} (B, M, KV,
+    Dh) (the decode path's cache, from ``cross_kv``)."""
+
+    B, S, D = x.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, Dh)
+    if memory_kv is None:
+        k, v = (kv.to(x.dtype) for kv in _memory_kv(cfg, p, memory))
+    else:
+        k, v = memory_kv["k"].to(x.dtype), memory_kv["v"].to(x.dtype)
+    out = _sdpa(q, k, v, None)
+    return out.reshape(B, S, H * Dh) @ p["wo"].to(x.dtype)
+
+
+def _memory_kv(cfg, p, memory):
+    B = memory.shape[0]
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
+    k = (memory @ p["wk"].to(memory.dtype)).reshape(B, -1, KV, Dh)
+    v = (memory @ p["wv"].to(memory.dtype)).reshape(B, -1, KV, Dh)
+    return k, v
+
+
+def cross_kv(cfg, p, memory):
+    """The decode cache's cross K and V of ``memory`` (B, M, D_mem), in
+    memory's dtype: {"k", "v"} (B, M, KV, Dh)."""
+    k, v = _memory_kv(cfg, p, memory)
+    return {"k": k, "v": v}

@@ -169,6 +169,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(seq: int, d: int, dtype=torch.float32, device=None):
+    """The (seq, d) sinusoidal position table (sin on even columns, cos on
+    odd ones), computed in f32 and cast to ``dtype``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, dim / d)
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # misc
 # ---------------------------------------------------------------------------

@@ -1,22 +1,26 @@
-"""Model assembly, after ``src/repro/models/transformer.py``, for five
+"""Model assembly, after ``src/repro/models/transformer.py``, for seven
 families: ``dense`` (GQA or MLA attention + MLP, heterogeneous
 local/global layers), ``moe`` (leading dense layers, then attention +
 mixture-of-experts layers whose load-balance aux losses sum into the
 forward's aux), ``ssm`` (RWKV6 blocks: time mix + channel mix), ``hybrid``
 (Zamba2: leading Mamba2 blocks, then groups of Mamba2 blocks each followed
-by ONE shared attention block, whose gradient sums over its uses) and
-``encoder`` (the BERT-style classifier: init and forward). For all but the
-encoder: init, the training forward, the decode cache and the decode step.
-The audio and vision families come with their slice (ROADMAP queue 1 item
-4c).
+by ONE shared attention block, whose gradient sums over its uses),
+``audio`` (Whisper: a bidirectional encoder over the batch's precomputed
+``frames`` with sinusoidal positions, then a causal decoder with learned
+positions whose layers cross-attend to the encoder's output), ``vlm``
+(Llama-3.2-Vision: groups of self-attention layers, each group followed by
+one cross-attention layer over the projected ``patches``, its attention
+and MLP scaled by ``tanh`` of their f32 0-d gates) and ``encoder`` (the
+BERT-style classifier: init and forward). For all but the encoder: init,
+the training forward, the decode cache and the decode step.
 
 Layer parameters and the cache carry leading layer axes, as the JAX stacks
-do (zamba2's ``mamba_groups`` two: groups, then blocks); the forward and
-the decode step walk the layers in a Python loop where JAX scans them.
-With ``cfg.remat`` each layer of the forward (each group, for zamba2's
-groups) runs under ``torch.utils.checkpoint``: its activations are
-recomputed in the backward pass, as ``jax.checkpoint`` on the JAX scan
-body does.
+do (zamba2's ``mamba_groups`` and the vision model's ``self_groups`` two:
+groups, then layers); the forward and the decode step walk the layers in a
+Python loop where JAX scans them. With ``cfg.remat`` each layer of the
+forward (each group, for zamba2's and the vision model's groups) runs
+under ``torch.utils.checkpoint``: its activations are recomputed in the
+backward pass, as ``jax.checkpoint`` on the JAX scan body does.
 """
 
 from __future__ import annotations
@@ -34,21 +38,15 @@ from repro_torch.models import ssm as ssm_mod
 
 Tree = Any
 
-#: the ROADMAP item that ports each family the port does not run yet
-_UNPORTED = {"audio": "queue 1 item 4c", "vlm": "queue 1 item 4c"}
-
 #: families whose decode cache is recurrent state, advanced one token per step
 RECURRENT_FAMILIES = ("ssm", "hybrid")
-_DECODERS = ("dense", "moe") + RECURRENT_FAMILIES
+_DECODERS = ("dense", "moe", "audio", "vlm") + RECURRENT_FAMILIES
 
 
 def _check_family(cfg, families=_DECODERS) -> None:
     if cfg.family not in families:
-        where = _UNPORTED.get(cfg.family)
-        raise ValueError(
-            f"{cfg.name!r} (family {cfg.family!r}) is not ported here: this path runs the "
-            f"{'/'.join(families)} families"
-            + (f"; ROADMAP {where} ports it" if where else ""))
+        raise ValueError(f"{cfg.name!r} (family {cfg.family!r}): this path runs the "
+                         f"{'/'.join(families)} families")
 
 
 def _init_dense_layer(cfg, gen, dtype, device, lead):
@@ -126,6 +124,57 @@ def _mamba_block(cfg, lp, h):
     return h + ssm_mod.apply_mamba(cfg, lp["mamba"], cm.apply_norm(cfg, lp["ln1"], h))
 
 
+def _init_cross_decoder_layer(cfg, gen, dtype, device, lead):
+    """whisper's decoder layer: a dense layer with ``ln_x`` and ``xattn``."""
+    p = _init_dense_layer(cfg, gen, dtype, device, lead)
+    p["ln_x"] = cm.init_norm(cfg, device=device, lead=lead)
+    p["xattn"] = attn.init_cross_attn(cfg, gen, dtype=dtype, device=device, lead=lead)
+    return p
+
+
+def _dense_layer_with_cross(cfg, p, x, positions, memory=None, memory_kv=None, cache=None,
+                            cache_pos=None):
+    """Self-attention, then cross-attention under ``ln_x``, then the MLP,
+    each added to the residual."""
+    h = cm.apply_norm(cfg, p["ln1"], x)
+    out, new_cache = attn.self_attention(cfg, p["attn"], h, positions, cache=cache,
+                                         cache_pos=cache_pos)
+    x = x + out
+    x = x + attn.cross_attention(cfg, p["xattn"], cm.apply_norm(cfg, p["ln_x"], x),
+                                 memory=memory, memory_kv=memory_kv)
+    x = x + cm.apply_mlp(cfg, p["mlp"], cm.apply_norm(cfg, p["ln2"], x))
+    return x, new_cache
+
+
+def _vision_layout(cfg) -> Tuple[int, int]:
+    """llama-3.2-vision: (groups, self layers per group); each group ends in
+    one gated cross-attention layer."""
+    k_grp = cfg.cross_attn_every
+    return cfg.num_layers // k_grp, k_grp - 1
+
+
+def _init_gated_cross(cfg, gen, dtype, device, lead):
+    return {
+        "ln1": cm.init_norm(cfg, device=device, lead=lead),
+        "ln2": cm.init_norm(cfg, device=device, lead=lead),
+        "xattn": attn.init_cross_attn(cfg, gen, dtype=dtype, device=device, lead=lead),
+        "mlp": cm.init_mlp(cfg, gen, dtype=dtype, device=device, lead=lead),
+        # 0 at init: the layer starts as the identity, as in the reference
+        "gate_attn": torch.zeros(lead, dtype=torch.float32, device=device),
+        "gate_mlp": torch.zeros(lead, dtype=torch.float32, device=device),
+    }
+
+
+def _gated_cross(cfg, cl, h, memory=None, memory_kv=None):
+    """The vision model's cross layer: attention over the image, then the
+    MLP, each scaled by ``tanh`` of its f32 gate cast to h's dtype."""
+    a = attn.cross_attention(cfg, cl["xattn"], cm.apply_norm(cfg, cl["ln1"], h),
+                             memory=memory, memory_kv=memory_kv)
+    h = h + torch.tanh(cl["gate_attn"]).to(h.dtype) * a
+    m = cm.apply_mlp(cfg, cl["mlp"], cm.apply_norm(cfg, cl["ln2"], h))
+    return h + torch.tanh(cl["gate_mlp"]).to(h.dtype) * m
+
+
 def _embed(cfg, params, tokens, dtype, positions: Optional[torch.Tensor] = None):
     """``positions`` (B, S) for the learned position table; None means the
     tokens start at position 0 (training)."""
@@ -169,6 +218,19 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Tree:
             params["mamba_head"] = _init_mamba_block(cfg, gen, dtype, device, (n_extra,))
         params["mamba_groups"] = _init_mamba_block(cfg, gen, dtype, device, (n_groups, k_grp))
         params["shared_attn"] = _init_dense_layer(cfg, gen, dtype, device, ())
+    elif cfg.family == "audio":
+        params["encoder"] = {
+            "layers": _init_dense_layer(cfg, gen, dtype, device, (cfg.encoder_layers,)),
+            "norm": cm.init_norm(cfg, device=device),
+        }
+        params["layers"] = _init_cross_decoder_layer(cfg, gen, dtype, device,
+                                                     (cfg.num_layers,))
+    elif cfg.family == "vlm":
+        n_groups, n_self = _vision_layout(cfg)
+        params["self_groups"] = _init_dense_layer(cfg, gen, dtype, device, (n_groups, n_self))
+        params["cross_layers"] = _init_gated_cross(cfg, gen, dtype, device, (n_groups,))
+        params["projector"] = cm.dense_init(gen, (cfg.vision_dim, cfg.d_model), dtype=dtype,
+                                            device=device)
     else:
         params["layers"] = _init_dense_layer(cfg, gen, dtype, device, (cfg.num_layers,))
     if cfg.pos_embed == "learned":
@@ -191,12 +253,13 @@ def _run_layer(cfg, fn, *args):
 
 
 def forward(cfg, params: Tree, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The training forward: (logits, aux loss). batch: tokens (B, S).
-    Dense, moe, ssm and hybrid: next-token logits (B, S, V) f32, and for
-    moe the sum of the MoE layers' load-balance losses as aux (else 0); the
-    recurrent families need S to be a multiple of ``cfg.ssm_chunk`` where
-    S exceeds it. Encoder: bidirectional layers, then the classifier on the
-    first token, (B, num_labels) f32."""
+    """The training forward: (logits, aux loss). batch: tokens (B, S), and
+    for audio ``frames`` (B, F, d_model), for vlm ``patches`` (B, M,
+    vision_dim). Every decoder family: next-token logits (B, S, V) f32, and
+    for moe the sum of the MoE layers' load-balance losses as aux (else 0);
+    the recurrent families need S to be a multiple of ``cfg.ssm_chunk``
+    where S exceeds it. Encoder: bidirectional layers, then the classifier
+    on the first token, (B, num_labels) f32."""
 
     _check_family(cfg, _DECODERS + ("encoder",))
     dtype = cm.dtype_of(cfg.dtype)
@@ -237,6 +300,25 @@ def forward(cfg, params: Tree, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Te
 
         for gp in cm.unbind_layers(params["mamba_groups"]):
             x = _run_layer(cfg, group, x, gp, params["shared_attn"])
+    elif cfg.family == "audio":
+        memory = _encode(cfg, params, batch["frames"].to(dtype))
+
+        def cross(h, lp, mem):
+            return _dense_layer_with_cross(cfg, lp, h, positions, memory=mem)[0]
+
+        for lp in cm.unbind_layers(params["layers"]):
+            x = _run_layer(cfg, cross, x, lp, memory)
+    elif cfg.family == "vlm":
+        memory = batch["patches"].to(dtype) @ params["projector"].to(dtype)
+
+        def vgroup(h, sg, cl, mem):  # the self layers, then the gated cross layer
+            for lp in cm.unbind_layers(sg):
+                h = _dense_layer(cfg, lp, h, positions, False)[0]
+            return _gated_cross(cfg, cl, h, memory=mem)
+
+        for sg, cl in zip(cm.unbind_layers(params["self_groups"]),
+                          cm.unbind_layers(params["cross_layers"])):
+            x = _run_layer(cfg, vgroup, x, sg, cl, memory)
     else:
         for lp, flag in zip(cm.unbind_layers(params["layers"]), _flags(cfg)):
             x = _run_layer(cfg, dense, x, lp, flag)
@@ -249,6 +331,21 @@ def forward(cfg, params: Tree, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Te
     return _unembed(cfg, params, x), aux
 
 
+def _encode(cfg, params, frames):
+    """whisper's encoder: sinusoidal positions on the frames, bidirectional
+    self-attention layers, the final norm. Returns the memory (B, F, D)."""
+    B, F = frames.shape[:2]
+    enc = frames + cm.sinusoidal_pos(F, cfg.d_model, frames.dtype, frames.device)[None]
+    enc_pos = torch.arange(F, dtype=torch.int32, device=frames.device)[None].expand(B, F)
+
+    def layer(h, lp):
+        return _dense_layer(cfg, lp, h, enc_pos, None, causal=False)[0]
+
+    for lp in cm.unbind_layers(params["encoder"]["layers"]):
+        enc = _run_layer(cfg, layer, enc, lp)
+    return cm.apply_norm(cfg, params["encoder"]["norm"], enc)
+
+
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
                device="cuda") -> Tree:
     """The decode cache, leaves stacked over layers: dense {"kv": {"k",
@@ -259,7 +356,11 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
     whatever ``dtype``, "x_att", "x_ffn" (L, B, D)}}; hybrid {"groups":
     {"ssm" (G, k, B, H, P, N), "conv" (G, k, B, K - 1, C)}, "attn_kv"
     (G, B, T, KV, Dh) for the shared block's G uses and, with leading
-    blocks, "head" as "groups" over those}."""
+    blocks, "head" as "groups" over those}. The cross-attending families
+    add "cross_kv" {"k", "v"}, zeros as in the reference (fill it with
+    ``attention.cross_kv`` of the memory): audio {"kv" over the decoder
+    layers, "cross_kv" (L, B, encoder_seq, KV, Dh)}; vlm {"self_kv" (G,
+    n_self, B, T, KV, Dh), "cross_kv" (G, B, vision_tokens, KV, Dh)}."""
 
     _check_family(cfg)
     device = cm.resolve_device(device)
@@ -281,6 +382,16 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
             cache["head"] = ssm_mod.init_mamba_state(cfg, batch, dtype, device=device,
                                                      lead=(n_extra,))
         return cache
+    if cfg.family == "audio":
+        return {"kv": one(cfg.num_layers),
+                "cross_kv": attn.init_kv_cache(cfg, batch, cfg.encoder_seq, dtype,
+                                               device=device, lead=(cfg.num_layers,))}
+    if cfg.family == "vlm":
+        n_groups, n_self = _vision_layout(cfg)
+        return {"self_kv": attn.init_kv_cache(cfg, batch, cache_len, dtype, device=device,
+                                              lead=(n_groups, n_self)),
+                "cross_kv": attn.init_kv_cache(cfg, batch, cfg.vision_tokens, dtype,
+                                               device=device, lead=(n_groups,))}
     if cfg.family == "moe":
         nd = cfg.first_k_dense
         cache = {"kv": attn.init_kv_cache(cfg, batch, cache_len, dtype, device=device,
@@ -359,6 +470,23 @@ def decode_step(cfg, params: Tree, cache: Tree, tokens: torch.Tensor,
                 x = mamba_step(x, cm.unstack_layer(gp, j), cache["groups"], (g, j))
             x, _ = _dense_layer(cfg, params["shared_attn"], x, positions, False,
                                 {"k": akv["k"][g], "v": akv["v"][g]}, pos)
+    elif cfg.family == "audio":
+        xkv = cache["cross_kv"]
+        for i, lc in enumerate(layer_caches(cache["kv"])):
+            x, _ = _dense_layer_with_cross(cfg, cm.unstack_layer(params["layers"], i), x,
+                                           positions, memory_kv={"k": xkv["k"][i],
+                                                                 "v": xkv["v"][i]},
+                                           cache=lc, cache_pos=pos)
+    elif cfg.family == "vlm":
+        n_groups, n_self = _vision_layout(cfg)
+        skv, xkv = cache["self_kv"], cache["cross_kv"]
+        for g in range(n_groups):
+            sg = cm.unstack_layer(params["self_groups"], g)
+            for j in range(n_self):
+                x, _ = _dense_layer(cfg, cm.unstack_layer(sg, j), x, positions, False,
+                                    {"k": skv["k"][g, j], "v": skv["v"][g, j]}, pos)
+            x = _gated_cross(cfg, cm.unstack_layer(params["cross_layers"], g), x,
+                             memory_kv={"k": xkv["k"][g], "v": xkv["v"][g]})
     elif cfg.family == "moe":
         if cfg.first_k_dense:
             for i, lc in enumerate(layer_caches(cache["dense_kv"])):

@@ -18,7 +18,8 @@ gaps between launches. Then the kernel at the 1024 bucket under several
 split counts.
 
 The module reaches the package only through ``flash_attn.flash_decode``'s
-calling convention, ``configs.get_config`` and ``perf.timers``, so it
+calling convention, ``configs.get_config``, ``perf.timers`` and
+``kernels.dispatch``'s launch counts, so it
 times another checkout's kernel as well (one whose ``perf.timers`` has
 ``graph_ms``): run it by path with that checkout's ``src`` first on
 ``PYTHONPATH`` (``PYTHONPATH=../old/src python
@@ -81,27 +82,53 @@ def bound_ms(cfg, pos_np, t, dtype, local):
 KERNEL_NAMES = ("decode_kernel", "decode_split_kernel", "merge_kernel")
 
 
-def kernel_us(fn, names=KERNEL_NAMES):
-    """Device time (us) of the kernels whose name holds one of ``names`` in
-    one eager run of ``fn()``, by the profiler: their execution alone, without
-    the gaps between launches that a graph replay's time includes. Also
-    their count of launches."""
+def device_us(e):
+    """The own device time (us) of a row of a profiler's ``key_averages``."""
+    us = getattr(e, "self_device_time_total", None)
+    return getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+
+
+def counted_profile(fn, names=KERNEL_NAMES, cpu=False, tries=3):
+    """``fn()`` under torch.profiler (the card's activity, and the host's if
+    ``cpu``), beside the launches that ``flash_decode``'s wrapper counted
+    over the same call (``kernels.dispatch``) and the kernel events of
+    ``names`` that the profiler recorded. The profiler at times drops a
+    pass's kernel events (22 of 26 in one pass once) and has not been seen
+    to add one: a pass that records fewer launches than the wrapper counted
+    is profiled again, ``tries`` passes at most. A launch that the wrapper
+    never made is not retried; it stays short of the caller's own count.
+    Returns (prof, counted, recorded) of the last pass."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import dispatch
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    for _ in range(tries):
+        before = dispatch.launches("flash_decode")
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counted = dispatch.launches("flash_decode") - before
+        recorded = sum(e.count for e in prof.key_averages()
+                       if any(n in e.key for n in names) and not e.key.startswith("aten::")
+                       and device_us(e) > 0)
+        if recorded >= counted:
+            break
+    return prof, counted, recorded
+
+
+def kernel_us(fn, names=KERNEL_NAMES):
+    """Device time (us) of the kernels whose name holds one of ``names`` in
+    one eager run of ``fn()``, by the profiler (``counted_profile``): their
+    execution alone, without the gaps between launches that a graph
+    replay's time includes. Also their count of launches by the profiler
+    and by the wrapper."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if any(n in e.key for n in names) and not e.key.startswith("aten::") and dev_us > 0:
-            us += dev_us
-            n += e.count
-    return us, n
+    prof, counted, recorded = counted_profile(fn, names)
+    us = sum(device_us(e) for e in prof.key_averages()
+             if any(n in e.key for n in names) and not e.key.startswith("aten::"))
+    return us, recorded, counted
 
 
 def time_case(flash_attn, cfg, dev, kinds, t, dtype, *, slots=4, seed=0, splits=()):
@@ -111,8 +138,9 @@ def time_case(flash_attn, cfg, dev, kinds, t, dtype, *, slots=4, seed=0, splits=
     ``ms_repeat`` (the kernel at its default split count), ``ms_eager``
     (the kernel as the model calls it, the host's launches included),
     ``plain_ms``, ``library_ms`` (SDPA) and ``bound_ms``; ``exec_ms``, the
-    kernels' own execution per layer by the profiler, and
-    ``launches_per_layer``; and ``ms_by_splits`` for each of ``splits``."""
+    kernels' own execution per layer by the profiler, its
+    ``launches_per_layer`` and the wrapper's ``calls_per_layer`` over the
+    same pass; and ``ms_by_splits`` for each of ``splits``."""
     import torch.nn.functional as F
 
     kinds = [kinds] * LAYERS if isinstance(kinds, str) else list(kinds)
@@ -147,8 +175,9 @@ def time_case(flash_attn, cfg, dev, kinds, t, dtype, *, slots=4, seed=0, splits=
     out["library_ms"] = graph_ms(run_library) / n
     out["ms_repeat"] = graph_ms(run) / n
     out["ms_eager"] = eager_ms(run) / n
-    us, launches = kernel_us(run)
-    out["exec_ms"], out["launches_per_layer"] = us / 1e3 / n, launches / n
+    us, launches, calls = kernel_us(run)
+    out["exec_ms"] = us / 1e3 / n
+    out["launches_per_layer"], out["calls_per_layer"] = launches / n, calls / n
     bounds = [bound_ms(cfg, pos_np, t, dtype, local) for local in flags]
     out["bound_ms"] = sum(ms for ms, _ in bounds) / n
     out["bound_by"] = "bytes" if all(by == "bytes" for _, by in bounds) else "operations"

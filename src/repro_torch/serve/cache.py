@@ -10,9 +10,11 @@ when the free list runs dry.
 ``build_spec`` finds the time axis by probing ``init_cache`` on the
 ``meta`` device (shapes, no memory) with two batch sizes and two cache
 lengths: the axis that moves with ``cache_len`` is the time axis (paged).
-Leaves with no such axis are per-slot state (the RWKV and Mamba recurrent
-state) stored dense at ``slots`` lanes. rwkv6's cache is all state;
-zamba2's has both (the shared block's paged K/V, the Mamba state).
+Leaves with no such axis are per-slot state stored dense at ``slots``
+lanes: the RWKV and Mamba recurrent state, and the cross-attention K/V of
+the audio and vision families, whose encoder or image axis is
+config-sized and is never paged. rwkv6's cache is all state; zamba2's,
+whisper's and llama-3.2-vision's have both.
 
 Physical page 0 is reserved as a trash page: inactive lanes' page-table
 rows are all-zero, so their decode writes land in the trash and their

@@ -26,12 +26,10 @@ numpy seed:
   1e-3 (the same four);
 * an MoE learner's and a hybrid learner's checkpoint across the packages,
   bitwise;
-* the families not ported yet raise, naming their ROADMAP item;
 * the train and serve CLIs on the CPU for the new archs, and their
   refusal without a card.
 """
 
-import dataclasses
 import json
 
 import numpy as np
@@ -51,7 +49,6 @@ from repro_torch import api, configs, convert, optim, serve, tree  # noqa: E402
 from repro_torch.core import problems  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
-from repro_torch.models import transformer as tf  # noqa: E402
 
 from test_torch_sama import _np_tree, _run_pair  # noqa: E402
 
@@ -97,9 +94,13 @@ def _shapes(t):
 
 
 def test_registry_holds_the_ported_families_archs():
-    assert configs.list_archs() == sorted(NEW + ["gemma3-1b", "bert-base"])
+    """Every arch of the JAX registry, of every family: this file's, and
+    whisper-small and llama-3.2-vision-90b (tests/test_torch_cross.py)."""
+    assert configs.list_archs() == jconfigs.list_archs() == sorted(
+        NEW + ["gemma3-1b", "bert-base", "whisper-small", "llama-3.2-vision-90b"])
     for name in configs.list_archs():
-        assert configs.get_config(name).family in ("dense", "moe", "encoder", "ssm", "hybrid")
+        assert configs.get_config(name).family in ("dense", "moe", "encoder", "ssm", "hybrid",
+                                                   "audio", "vlm")
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -129,22 +130,6 @@ def test_full_size_param_and_cache_shapes_match(arch):
     assert abs(n - FULL_PARAMS[arch]) < 0.01 * FULL_PARAMS[arch]
     jcache = jax.eval_shape(lambda: jm.init_cache(4, 1024))
     assert _shapes(tm.init_cache(4, 1024, device="meta")) == _shapes(jcache)
-
-
-@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
-def test_unported_families_raise_naming_their_roadmap_item(arch):
-    jcfg = jconfigs.get_smoke_config(arch)
-    cfg = configs.ArchConfig(**{f.name: getattr(jcfg, f.name)
-                                for f in dataclasses.fields(configs.ArchConfig)})
-    item = "4c"
-    for call in (lambda: tf.init_params(cfg, 0, device="cpu"),
-                 lambda: tf.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: tf.forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)}),
-                 lambda: tf.decode_step(cfg, {}, {}, torch.zeros(1, 1, dtype=torch.long), 0)):
-        with pytest.raises(ValueError, match=f"not ported.*ROADMAP queue 1 item {item}"):
-            call()
-    with pytest.raises(ValueError, match="unknown arch"):
-        configs.get_config(arch)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port's training kernels against their plain PyTorch versions on the
 card: the flash-attention forward and its dq and dk/dv backward kernels
-(through autograd), the blockwise cross-entropy forward and backward, and
+(through autograd), the decode kernel at the cross-attending families'
+layers, the blockwise cross-entropy forward and backward, and
 the Adam, Lion and Adafactor adaptation products; then SAMA meta steps of
 the bert-base and gemma3 smoke models through the kernels, against the
 same steps with every kernel forced to its plain version, with each
@@ -45,14 +46,20 @@ def _randn(rng, shape, dtype, dev):
 
 # (B, S, T, KV, G, Dh, causal, window, softcap, padded): bert-base's
 # layer, the gemma-like training shape (G 4, Dh 256, window, softcap),
-# ragged or odd group and head sizes, and padding: keys 64-191 (whole key
-# tiles) and lane 1's queries 32-95 (whole query tiles) at position -1
+# ragged or odd group and head sizes, padding: keys 64-191 (whole key
+# tiles) and lane 1's queries 32-95 (whole query tiles) at position -1;
+# whisper-small's encoder (non-causal, S = T 1,500: a partial last tile)
+# and decoder (causal, S 448) layers, and llama-3.2-vision-90b's self
+# layer (H 64 over KV 8: G 8, the kernels' largest group, at Dh 128)
 CASES = [
     (4, 128, 128, 12, 1, 64, False, 0, 0.0, False),
     (2, 200, 200, 1, 4, 256, True, 64, 50.0, False),
     (3, 17, 45, 2, 3, 40, True, 0, 0.0, False),
     (2, 33, 33, 1, 8, 8, True, 5, 20.0, False),
     (2, 170, 250, 1, 4, 128, True, 0, 0.0, True),
+    (2, 1500, 1500, 12, 1, 64, False, 0, 0.0, False),
+    (2, 448, 448, 12, 1, 64, True, 0, 0.0, False),
+    (1, 256, 256, 8, 8, 128, True, 0, 0.0, False),
 ]
 
 
@@ -120,6 +127,26 @@ def test_flash_attention_backward_is_deterministic(dev, case, dtype):
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.isfinite(a.float()).all(), name
         assert torch.equal(a, b), f"{name}: {int((a != b).sum())} elements differ"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv,g,dh,t", [(12, 1, 64, 448), (8, 8, 128, 1024)])
+def test_flash_decode_at_the_cross_families_layers(dev, kv, g, dh, t, dtype):
+    """The decode kernel at whisper-small's decoder layer (KV 12, G 1, Dh
+    64, its 448-token context) and llama-3.2-vision-90b's self layer (KV
+    8, G 8, Dh 128), four lanes at ragged positions, against its plain
+    version: f32 1e-5, bf16 2e-2."""
+    rng = np.random.default_rng(kv * g + t)
+    q = _randn(rng, (4, 1, kv * g, dh), dtype, dev)
+    k, v = (_randn(rng, (4, t, kv, dh), dtype, dev) for _ in range(2))
+    pos = torch.tensor([[t - 1], [t // 2], [17], [0]], dtype=torch.int32, device=dev)
+    dispatch.reset_launches()
+    got = flash_attn.flash_decode(q, k, v, pos, False)
+    torch.cuda.synchronize()
+    assert dispatch.launches("flash_decode") == 1
+    plain = flash_attn.flash_decode(q, k, v, pos, False, backend="plain")
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - plain.float()).abs().max().item() <= TOL[dtype][0]
 
 
 def test_flash_attention_kernel_lse_and_masked_rows(dev):
@@ -193,14 +220,17 @@ def test_adam_adapt_kernel_matches_plain(dev, n, t):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,sliced", [((37, 5000), False), ((3, 40, 8192), True),
-                                          ((2, 4096), False), ((5, 4097), False)])
+                                          ((2, 4096), False), ((5, 4097), False),
+                                          ((2, 448, 51865), True)])
 def test_weighted_ce_kernels_match_plain(dev, shape, sliced, dtype):
     """Forward (ce, lse) and backward (dlogits) through autograd, the
     backward kernel's gradient in the logits' dtype. ``sliced`` feeds the
     LM loss's logits[:, :-1] view; V 4097 leaves rows unaligned and a
     ragged end. f32 within 1e-5 (1 + |ref|) forward and 1e-6 + 1e-5 |ref|
     backward; bf16 gradients within half an ulp of the plain version in
-    f32 (plus the f32 tolerance)."""
+    f32 (plus the f32 tolerance). whisper-small's LM loss (V 51,865, odd:
+    every row but the first off a 16-byte boundary) takes the kernels'
+    scalar loads."""
     from repro_torch.kernels import weighted_ce
 
     rng = np.random.default_rng(sum(shape))
