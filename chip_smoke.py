@@ -269,6 +269,32 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    1e-4 |ref|. Every attention-kernel launch of the phase at a signature
    phases 3 and 4 held; the kernels line gives each kernel's launches on
    whisper's paths.
+23. observability (``repro_torch.obs``; run right after phase 6, whose
+   weights and tokens it takes): (a) bert-base in its own dtype, batch 48,
+   seq 128, unroll 2: OBS_PAIRS_TRAIN (3) pairs of whole arms, each a
+   BF16_STEPS-step ``MetaLearner.fit`` from one copy of the state, obs off
+   and on (a JSONL sink, the default monitors, the kernels' routing
+   mirrored into the default pipeline; the spans are ``phase_profile``'s,
+   below, and ``perf/bench_obs.py`` times a traced loop), the order
+   alternating: the metrics and the final theta bitwise equal between the
+   arms, the launch and route counts equal; what obs costs, counted
+   (``perf/obs_cost.py``: the obs arm's calls replayed on a fresh
+   pipeline, and the collector's share) over the off arms' median wall,
+   at most OBS_LIMIT (1.03), the walls' ratio and each arm's collections
+   beside it; the JSONL passes ``report --validate`` (its report text to
+   DIR/obs_report.txt); ``phase_profile`` spans every training phase,
+   written as a Chrome trace that parses. (b) Phase 6's requests on
+   gemma3-1b, whole ``run()`` calls of an untraced and a traced executor
+   (an obs ring, the monitors with the SLO burn rate), OBS_PAIRS_SERVE (2)
+   pairs, the order alternating: tokens equal between the arms and to
+   phase 6's, every request's timeline rebuilt with one terminal event,
+   tracing's counted cost over the untraced median wall at most
+   OBS_LIMIT; the always-on flight ring's counted cost reported.
+   (c) The same requests with ``hang_deadline_s`` 0.5 and
+   ``inject_hang(2.5)``: a postmortem bundle in DIR/flight that validates,
+   its state the queue, the lanes and the memory, the tokens again equal.
+   ``--observability-only N`` runs phase 23 N times after the build and
+   phase 6, and prints how many passed.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. The weights and data are random, from seeds; nothing is downloaded.
@@ -276,6 +302,7 @@ line. The weights and data are random, from seeds; nothing is downloaded.
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import json
 import math
@@ -293,6 +320,8 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 # the card's rates and graph-replay timing, shared with the perf tools
 from repro_torch.perf.timers import HBM_BYTES_PER_S, PEAK_OPS_PER_S, graph_ms  # noqa: E402
+# phase 23's count of what observability costs
+from repro_torch.perf import obs_cost  # noqa: E402
 
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -853,10 +882,234 @@ def phase_serve_bf16(cfg, params, dev, out_dir, tag="serve_bf16", sizes=SERVE_BF
         "decode_steps": stats.steps, "flash_decode_launches": launches,
         "prompt_tokens": sum(len(p) for p in prompts), "max_memory_allocated": peak,
     }
+    # phase 23 holds its arms' tokens to these
+    result["tokens_sha256"] = _tokens_digest([ex.results[i].tokens for i in ids])
     log(f"{tag}: " + json.dumps(result))
     result["step_profile"] = profile_step(model, params, scfg, prompts[:4], out_dir,
                                           "decode_step" if tag == "serve_bf16" else tag)
     return result, launches
+
+
+def _tokens_digest(tokens):
+    return hashlib.sha256(json.dumps(tokens).encode()).hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# phase 23: observability
+# ---------------------------------------------------------------------------
+
+#: pairs of whole arms, obs off and on, the order alternating. Their walls
+#: are reported, not held: on the card's shared hosts the arms' median
+#: walls differ by -8% to +8% (training) and -14% to +13% (serving) from
+#: run to run while obs costs ~0.1%, so what obs costs is counted
+#: (``perf/obs_cost.py``) and held
+OBS_PAIRS_TRAIN = 3
+OBS_PAIRS_SERVE = 2
+#: the reference's bound: obs costs at most 3% of the median wall time
+OBS_LIMIT = obs_cost.LIMIT
+
+
+def _obs_train(cfg, dev, out_dir, batch=48, seq=128, unroll=2, steps=BF16_STEPS):
+    """23(a): bert-base bf16 ``fit`` with obs off and on from one state,
+    whole arms by turns; obs's counted cost held to OBS_LIMIT."""
+    from repro_torch import data, obs, optim, tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import Model
+    from repro_torch.obs import report
+
+    model = Model(cfg, device=dev)
+    train, meta = _wrench(cfg, seq, 1024, 256, SEED + 230)
+    learner = _learner(model, dev, unroll, optim.adam(1e-3))
+    it = data.BatchIterator(train, meta, batch_size=batch, meta_batch_size=batch,
+                            unroll=unroll, seed=SEED + 231, device=dev)
+    batches = [next(it) for _ in range(steps)]
+    state0 = learner.state
+    learner.step(*batches[0])  # warm
+    log_path = os.path.join(out_dir, "obs_train.jsonl")
+    replay_path = os.path.join(out_dir, "obs_train_replay.jsonl")
+    if os.path.exists(replay_path):
+        os.remove(replay_path)
+
+    def arm(on):
+        """One arm: ``steps`` steps of ``fit`` from state0; with ``on``, a
+        fresh JSONL log of its own (the last one's is kept)."""
+        o = None
+        if on:
+            if os.path.exists(log_path):
+                os.remove(log_path)
+            o = obs.Obs(sink=obs.JsonlSink(log_path), run_id="chip_smoke_23a")
+        learner.state = state0
+        dispatch.reset_launches()
+        obs.set_default(o)
+        try:
+            history = learner.fit(iter(batches), steps, log_every=1, obs=o)
+        finally:
+            obs.set_default(None)
+        if o is not None:
+            o.close()
+        return {"obs": o, "history": history, "theta": tree.tree_leaves(learner.state.theta),
+                "launches": dispatch.launch_counts(), "routes": dispatch.route_counts()}
+
+    walls, meters, results = obs_cost.paired_arms(
+        {"off": lambda: arm(False), "on": lambda: arm(True)}, OBS_PAIRS_TRAIN,
+        sync=torch.cuda.synchronize)
+    walls = {a: [w * 1e3 for w in ws] for a, ws in walls.items()}
+    for outs in results:
+        off, on = outs["off"], outs["on"]
+        if on["history"] != off["history"]:
+            raise AssertionError(f"23(a): metrics differ: {on['history']} != {off['history']}")
+        if not all(torch.equal(a, b) for a, b in zip(on["theta"], off["theta"])):
+            raise AssertionError("23(a): final theta not bitwise equal with obs on and off")
+        if (on["launches"], on["routes"]) != (off["launches"], off["routes"]):
+            raise AssertionError(f"23(a): launches {on['launches']} routes {on['routes']} "
+                                 f"!= {off['launches']} {off['routes']}")
+    on_obs, on_events = results[-1]["on"]["obs"], list(obs.read_jsonl(log_path))
+    cost = obs_cost.train_cost(
+        on_obs, on_events,
+        lambda: obs.Obs(sink=obs.JsonlSink(replay_path), run_id="chip_smoke_23a"),
+        float(np.median(walls["off"])) / 1e3, read_back=lambda o: obs.read_jsonl(o.sink.path))
+    os.remove(replay_path)
+
+    o = obs.Obs(sink=obs.JsonlSink(log_path), run_id="chip_smoke_23a")
+    learner.obs = o
+    learner.state = state0
+    spans = learner.phase_profile(*batches[0])
+    learner.obs = obs.NULL_OBS
+    o.close()
+    missing = set(PHASES) - {s.name for s in spans}
+    if missing:
+        raise AssertionError(f"23(a) phase_profile: no span for {sorted(missing)}")
+    trace_path = obs.write_chrome_trace(os.path.join(out_dir, "obs_phase_profile.json"), spans)
+    with open(trace_path) as f:
+        n_trace = len(json.load(f)["traceEvents"])
+    with open(os.path.join(out_dir, "obs_report.txt"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        rc = report.main([log_path, "--validate"])
+    events = list(obs.read_jsonl(log_path))
+    if rc != 0 or obs.validate_jsonl(log_path):
+        raise AssertionError(f"23(a): {log_path} fails report --validate")
+    result = {"pairs": OBS_PAIRS_TRAIN, "steps": steps, "wall_ms_off": walls["off"],
+              "wall_ms_on": walls["on"],
+              "wall_ratio": float(np.median(walls["on"]) / np.median(walls["off"])),
+              "collections": {a: m.as_dict() for a, m in meters.items()},
+              "overhead_ratio": cost["ratio"], "limit": OBS_LIMIT, "counted": cost,
+              "launches": off["launches"], "jsonl_events": len(events),
+              "event_kinds": sorted({e.kind for e in events}),
+              "phase_profile_ms": {s.name: s.dur_s * 1e3 for s in spans},
+              "chrome_trace_events": n_trace}
+    log("obs_train: " + json.dumps(result))
+    if cost["ratio"] > OBS_LIMIT:
+        raise AssertionError(f"23(a): obs costs {100 * (cost['ratio'] - 1):.3f}% of the wall, "
+                             f"over {100 * (OBS_LIMIT - 1):.0f}%")
+    return result
+
+
+def _obs_serve(cfg, params, dev, out_dir, phase6_digest, sizes=SERVE_BF16):
+    """23(b-c): phase 6's requests untraced and traced, then under the hang
+    watchdog with an injected stall."""
+    from repro_torch import obs, serve
+    from repro_torch.models import Model
+    from repro_torch.obs import flight, report
+
+    model = Model(cfg, device=dev)
+    n, lo, hi, gen, page, max_len = sizes
+    prompts = _requests(cfg, n, lo, hi, SEED + 3)
+    scfg = serve.ServeConfig(slots=4, page_size=page, max_len=max_len, max_new_tokens=gen)
+
+    def traced_obs():
+        return obs.make_obs(ring=16384, slo_budget=0.25)
+
+    def executor(o, **knobs):
+        ex = serve.ServeExecutor(model, params, dataclasses.replace(scfg, **knobs), obs=o)
+        ids = [ex.submit(p, max_new_tokens=gen) for p in prompts]
+        return ex, ids
+
+    def arm(traced):
+        """One arm: a fresh executor (traced: with a fresh pipeline) and a
+        whole ``run()``; its tokens, pipeline, flight ring and stats."""
+        o = traced_obs() if traced else None
+        ex, ids = executor(o)
+        ex.run()
+        return {"tokens": [ex.results[i].tokens for i in ids],
+                "statuses": [ex.results[i].status for i in ids],
+                "obs": o, "flight": ex.flight, "stats": ex.stats()}
+
+    walls, meters, results = obs_cost.paired_arms(
+        {"untraced": lambda: arm(False), "traced": lambda: arm(True)}, OBS_PAIRS_SERVE,
+        sync=torch.cuda.synchronize)
+    walls = {a: [w * 1e3 for w in ws] for a, ws in walls.items()}
+    for outs in results:
+        for a, out in outs.items():
+            if out["statuses"] != [serve.STATUS_OK] * n:
+                raise AssertionError(f"23 {a}: statuses {out['statuses']}")
+            if _tokens_digest(out["tokens"]) != phase6_digest:
+                raise AssertionError(f"23 {a}: tokens differ from phase 6's")
+        events = outs["traced"]["obs"].sink.events()
+        errors = report.validate_timelines(events)
+        timelines = report.serve_timelines(events)
+        terminals = [sum(e.name in report.TERMINAL_NAMES for e in evs)
+                     for evs in timelines.values()]
+        if errors or len(timelines) != n or terminals != [1] * n:
+            raise AssertionError(f"23(b): {len(timelines)} timelines, terminals {terminals}, "
+                                 f"errors {errors[:3]}")
+    ref_tokens = results[-1]["untraced"]["tokens"]
+    last = results[-1]["traced"]
+    traced_out = {"events": len(events), "health": last["obs"].health.status,
+                  "ttft_p50_ms": last["stats"].ttft.p50_us / 1e3,
+                  "tpot_p50_ms": last["stats"].tpot.p50_us / 1e3}
+    cost = obs_cost.serve_cost(last["obs"], last["flight"], traced_obs,
+                               float(np.median(walls["untraced"])) / 1e3,
+                               flight_capacity=scfg.flight_capacity,
+                               snapshot_every=scfg.flight_snapshot_every)
+    ratio = cost["traced"]["ratio"]
+    result = {"pairs": OBS_PAIRS_SERVE, "requests": n, "wall_ms_untraced": walls["untraced"],
+              "wall_ms_traced": walls["traced"],
+              "wall_ratio": float(np.median(walls["traced"]) / np.median(walls["untraced"])),
+              "collections": {a: m.as_dict() for a, m in meters.items()},
+              "overhead_ratio": ratio, "limit": OBS_LIMIT, "counted": cost["traced"],
+              "flight_ring_counted": cost["flight"], **traced_out}
+    log("obs_serve: " + json.dumps(result))
+    if ratio > OBS_LIMIT:
+        raise AssertionError(f"23(b): tracing costs {100 * (ratio - 1):.3f}% of the wall, "
+                             f"over {100 * (OBS_LIMIT - 1):.0f}%")
+
+    flight_dir = os.path.join(out_dir, "flight")
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    ex, ids = executor(None, flight_dir=flight_dir, hang_deadline_s=0.5)
+    ex.inject_hang(2.5)
+    t0 = time.perf_counter()
+    ex.run()
+    wall = time.perf_counter() - t0
+    if [ex.results[i].tokens for i in ids] != ref_tokens:
+        raise AssertionError("23(c): tokens differ from the untraced arm's")
+    if not ex.flight.dumps:
+        raise AssertionError("23(c): the hang watchdog wrote no bundle")
+    bundles = []
+    for path in ex.flight.dumps:
+        b = flight.load_bundle(path)
+        errors = flight.validate_bundle(b)
+        if errors or not {"queue", "lanes", "memory"} <= set(b["state"]):
+            raise AssertionError(f"23(c) {path}: {errors} state {sorted(b['state'])}")
+        bundles.append({"path": os.path.relpath(path, out_dir),
+                        "trigger": b["trigger"]["reason"], "events": len(b["events"]),
+                        "live_lanes": len(b["state"]["lanes"]),
+                        "device_allocated_bytes":
+                            b["state"]["memory"].get("device_allocated_bytes")})
+    hang = {"wall_s": wall, "bundles": bundles}
+    log("obs_hang: " + json.dumps(hang))
+    result["hang"] = hang
+    return result
+
+
+def phase_observability(train_cfg, serve_cfg, params, dev, out_dir, phase6_digest):
+    """Phase 23: (a) on ``train_cfg`` (bert-base), (b-c) on ``serve_cfg``
+    (gemma3-1b) with phase 6's weights, held to phase 6's tokens."""
+    t0 = time.perf_counter()
+    out = {"train": _obs_train(train_cfg, dev, out_dir)}
+    torch.cuda.empty_cache()
+    out["serve"] = _obs_serve(serve_cfg, params, dev, out_dir, phase6_digest)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def profile_step(model, params, scfg, prompts, out_dir, name="decode_step"):
@@ -1926,7 +2179,7 @@ def _step_pair(learner, state, base, meta, counted=(), sign_lr=None, host=False)
     runs, with ``host`` in host memory (a parameter-sized tree off a card
     that is nearly full)."""
     from repro_torch import tree
-    from repro_torch.core.engine import packed_read
+    from repro_torch.obs.metrics import packed_read
     from repro_torch.kernels import dispatch
 
     dispatch.reset_launches()
@@ -2220,7 +2473,7 @@ def phase_checkpoint(cfg, dev, learner, it, out_dir, unroll=2):
     learner (another init): every leaf bitwise equal, and the next step from
     both states within phase 7's tolerances (_hold)."""
     from repro_torch import optim, tree
-    from repro_torch.core.engine import packed_read
+    from repro_torch.obs.metrics import packed_read
     from repro_torch.models import Model
 
     path = os.path.join(out_dir, "checkpoint")
@@ -2280,7 +2533,7 @@ def phase_scale_f32(base_cfg, dev, batch=16, seq=128, unroll=2, steps=F32_PAIRS,
     differences, not held (the reference's own f32-exactness property
     fails on the reference: ROADMAP queue 3)."""
     from repro_torch import optim, scale, tree
-    from repro_torch.core.engine import packed_read
+    from repro_torch.obs.metrics import packed_read
     from repro_torch.models import Model
 
     cfg = base_cfg.replace(dtype="float32")
@@ -2419,7 +2672,7 @@ def phase_scale_f16(base_cfg, dev, batch=4, seq=1024, unroll=2, meta_batch=4, st
     policy (two meta steps, M = 2), whose f16 logits take the kernels."""
     from repro_torch import api, scale, tree
     from repro_torch.core import problems
-    from repro_torch.core.engine import packed_read
+    from repro_torch.obs.metrics import packed_read
     from repro_torch.kernels import dispatch, weighted_ce as wce
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.models import Model
@@ -2627,7 +2880,7 @@ def _dist_rank(rank, out_dir, batch, seq, unroll, steps):
     Then each rank times a lone all-reduce of one base bucket (theta's
     elements in f32). Results go to phase17_rank{rank}.pt."""
     from repro_torch import dataopt, tree
-    from repro_torch.core.engine import packed_read
+    from repro_torch.obs.metrics import packed_read
     from repro_torch.kernels import dispatch
     from repro_torch.launch import distributed as D
     from repro_torch.launch.mesh import make_data_mesh
@@ -2750,7 +3003,7 @@ def phase_distributed(dev, out_dir, batch=16, seq=128, unroll=2, steps=3):
     one-device pass. (d) A model axis above 1 raises NotImplementedError."""
     import torch.distributed as dist
 
-    from repro_torch.core.engine import packed_read
+    from repro_torch.obs.metrics import packed_read
     from repro_torch.kernels import dispatch
     from repro_torch.launch import distributed as D
     from repro_torch.launch import mesh as M
@@ -2928,7 +3181,7 @@ def _timed_fit(tag, learner, it, steps, want_per_step, out_dir, trace_name, per_
     launches outside the count): device time by phase and by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.engine import packed_read
+    from repro_torch.obs.metrics import packed_read
     from repro_torch.kernels import dispatch
 
     packed_read(learner.step(*next(it)))  # warm: cuBLAS handles, kernel libraries
@@ -3119,7 +3372,7 @@ def _rounding_floor(learner, state, base, meta, seed, draws):
     plain step from ``state`` itself (``_diff``), the spread that rounding
     alone gives the step."""
     from repro_torch import tree
-    from repro_torch.core.engine import packed_read
+    from repro_torch.obs.metrics import packed_read
     from repro_torch.kernels import dispatch
 
     gen = torch.Generator(device=state.step.device).manual_seed(seed)
@@ -3706,6 +3959,10 @@ def main():
                     help="directory for the profiler traces of a decode and the training "
                          "steps, the Table 2, scale and paper-bench files and phase 16's "
                          "score export")
+    ap.add_argument("--observability-only", type=int, default=0, metavar="N",
+                    help="run phase 23 N times after the build and phase 6 (whose weights "
+                         "and tokens it takes), log how many runs passed, and stop: exit 0 "
+                         "if all did, with no result line")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -3728,6 +3985,19 @@ def main():
     cfg = configs.get_config("gemma3-1b")
     bert = configs.get_config("bert-base")
     build_s, ptxas = timed("build", phase_build)
+    if args.observability_only:
+        params = Model(cfg, device=dev).init(SEED)
+        serve_out, _ = timed("serve_bf16", phase_serve_bf16, cfg, params, dev, args.out)
+        runs, passed = args.observability_only, 0
+        for k in range(runs):
+            try:
+                timed("observability", phase_observability, bert, cfg, params, dev, args.out,
+                      serve_out["tokens_sha256"])
+                passed += 1
+            except AssertionError as e:
+                log(f"observability run {k + 1}: failed: {e}")
+        log(f"observability: {passed} of {runs} runs passed")
+        sys.exit(0 if passed == runs else 1)
 
     # phase 3: the decode kernel
     entry = {"name": "flash_decode", "route": "cuda",
@@ -3841,6 +4111,13 @@ def main():
     serve_out, launches = timed("serve_bf16", phase_serve_bf16, cfg, params, dev, args.out)
     entry["launches"] = launches
     entry["serve_bf16"] = serve_out
+    # phase 23: the observability layer, on phase 6's weights and tokens
+    obs_out = timed("observability", phase_observability, bert, cfg, params, dev, args.out,
+                    serve_out["tokens_sha256"])
+    log(f"observability: {obs_out['seconds']:.1f}s; obs overhead ratios (counted): train "
+        f"{obs_out['train']['overhead_ratio']:.6f}, serve "
+        f"{obs_out['serve']['overhead_ratio']:.6f} (limit {OBS_LIMIT}); wall ratios: train "
+        f"{obs_out['train']['wall_ratio']:.4f}, serve {obs_out['serve']['wall_ratio']:.4f}")
     del params
     torch.cuda.empty_cache()
 

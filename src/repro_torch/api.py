@@ -7,7 +7,11 @@ package's format (``repro_torch.checkpoint``) and ``profile`` through
 (``alpha``, ``base_nudge``, ``adapt_clip``, the baselines'
 ``neumann_terms``, ``neumann_scale``, ``cg_iters``, ``cg_damping``, and
 ``scale``, a ``repro_torch.scale.ScaleConfig``: precision policy and
-microbatch count). A ``mesh`` (``repro_torch.launch.mesh``) runs the step
+microbatch count). ``obs`` (a ``repro_torch.obs.Obs``) receives the
+metrics, loss-scale and gate events at ``fit``'s log boundary, the
+census verdict of ``verify_census`` and the checkpoint events;
+``phase_profile`` gives each phase's wall time. A ``mesh``
+(``repro_torch.launch.mesh``) runs the step
 data parallel over ``torch.distributed`` with one of the ``SCHEDULES``:
 the paper's single-sync schedule or the global-batch (pjit) baseline
 (``repro_torch.launch.distributed``). Every rank builds the same learner,
@@ -34,7 +38,11 @@ import dataclasses
 import os
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
+import torch
+
 from repro_torch import checkpoint, optim
+from repro_torch import obs as obs_mod
+from repro_torch import tree as tu
 from repro_torch.core.bilevel import BilevelSpec
 from repro_torch.core.engine import EngineConfig, EngineState, init_state, run_loop
 from repro_torch.core.methods import HypergradMethod
@@ -68,6 +76,7 @@ class MetaLearner:
         schedule: str = "auto",
         allow_nonlinear: bool = False,
         checkpoint_dir: Optional[str] = None,
+        obs=None,
         **method_knobs,
     ):
         if schedule not in SCHEDULES:
@@ -84,6 +93,7 @@ class MetaLearner:
         self.cfg = EngineConfig(method=method, unroll_steps=unroll_steps, **method_knobs)
         self.method = self.cfg.resolve()
         self.checkpoint_dir = checkpoint_dir
+        self.obs = obs if obs is not None else obs_mod.NULL_OBS
         self.state: Optional[EngineState] = None
         self.mesh = mesh
         if schedule == "auto":
@@ -118,11 +128,13 @@ class MetaLearner:
         return metrics
 
     def fit(self, batch_iter: Iterator[Tuple[Any, Any]], steps: int, *,
-            log_every: int = 0, save_every: int = 0) -> List[Dict[str, float]]:
+            log_every: int = 0, save_every: int = 0, obs=None) -> List[Dict[str, float]]:
         """Run ``steps`` meta steps from an iterator of (base_batches[K],
         meta_batch); returns the metrics read at the ``log_every`` cadence
         (one device-to-host copy per logged step, ``run_loop``). Saves a
-        checkpoint every ``save_every`` steps into ``checkpoint_dir``."""
+        checkpoint every ``save_every`` steps into ``checkpoint_dir``.
+        ``obs`` (the learner's own by default) receives the metrics, scale
+        and gate events at the same boundary: no added sync point."""
 
         if save_every and self.checkpoint_dir is None:
             raise ValueError("fit(save_every=...) needs a checkpoint_dir")
@@ -138,7 +150,7 @@ class MetaLearner:
                 self.save()
 
         _, history = run_loop(step_adapter, self.state, batch_iter, steps, log_every,
-                              on_step=on_step)
+                              on_step=on_step, obs=obs if obs is not None else self.obs)
         return history
 
     def profile(self, base_batches, meta_batch, *, warmup: int = 2, repeats: int = 5,
@@ -163,13 +175,36 @@ class MetaLearner:
                                  base_batches, meta_batch, samples_per_step=samples_per_step,
                                  warmup=warmup, repeats=repeats, extra=extra)
 
+    def phase_profile(self, base_batches, meta_batch):
+        """Per-phase wall times: ONE step under an activated span tracer
+        that synchronises the device at each span's end, so each span of
+        the engine's phases (base unroll, local terms with SAMA's meta pass
+        and CD passes, finalize, meta update, and the flat-bucket
+        all-reduce on the single-sync schedule) is the phase's wall time,
+        device work included. Returns the ``repro_torch.obs.Span`` list;
+        with an enabled obs on the learner each span is also a ``span``
+        event. The state does not advance (the step is a function of it).
+        The syncs cost the overlap of host and device, so read the spans as
+        the phases' relative cost; ``profile`` times whole steps."""
+
+        if self.state is None:
+            raise RuntimeError("call init(theta, lam) or load(...) before phase_profile()")
+        on_card = tu.tree_leaves(self.state.theta)[0].is_cuda
+        tracer = obs_mod.Tracer(obs=self.obs if self.obs.enabled else None,
+                                sync=torch.cuda.synchronize if on_card else None)
+        with obs_mod.activate(tracer):
+            self.step_fn(self.state, base_batches, meta_batch)
+        return tracer.runtime_spans()
+
     def verify_census(self, base_batches, meta_batch) -> Dict[str, Any]:
         """Run one step on these batches under a ``CollectiveCounter`` and
         check the census against the pinned ``unroll_steps + 1``
         all-reduces (``perf.verify_single_sync``). The learner's state does
         not advance (the step is a function of it). Meaningful on the
         single-sync schedule: the others pin nothing. Under a mesh every
-        rank must call it, as every collective needs every rank."""
+        rank must call it, as every collective needs every rank. With an
+        enabled obs the verdict is a ``census`` event (a mismatch trips the
+        census health monitor)."""
 
         from repro_torch.launch.distributed import CollectiveCounter
         from repro_torch.perf import collectives
@@ -178,7 +213,12 @@ class MetaLearner:
             raise RuntimeError("call init(theta, lam) or load(...) before verify_census()")
         with CollectiveCounter() as counter:
             self.step_fn(self.state, base_batches, meta_batch)
-        return collectives.verify_single_sync(counter, self.cfg.unroll_steps)
+        stats = collectives.verify_single_sync(counter, self.cfg.unroll_steps)
+        if self.obs.enabled:
+            self.obs.observe_census(stats.get("all-reduce_count", 0),
+                                    stats["expected_all_reduces"],
+                                    detail={"schedule": self.schedule})
+        return stats
 
     # -- checkpointing -----------------------------------------------------
 
@@ -208,6 +248,8 @@ class MetaLearner:
             from repro_torch.launch.distributed import collective
 
             collective("barrier", None, self.mesh)
+        if self.obs.enabled:
+            self.obs.emit("checkpoint", "save", step=step, data={"path": path})
         return path
 
     def load(self, path: Optional[str] = None) -> EngineState:
@@ -237,4 +279,7 @@ class MetaLearner:
                     f"learner uses {mine!r}; construct a matching MetaLearner "
                     "(or restore via repro_torch.checkpoint directly to override)")
         self.state = state
+        if self.obs.enabled:
+            self.obs.emit("checkpoint", "restore", step=int(state.step),
+                          data={"path": path})
         return self.state

@@ -17,11 +17,12 @@ stages 2 and 3, the global-batch one runs this step under a reducer. ``cfg.scale
 levels, accumulates every batch-sized backward pass over M microbatches,
 and, under a loss-scaling policy (f16), skips a base step or the meta
 update whose gradient is not finite and runs the loss-scale automaton;
-every gate is a 0-d tensor on the device. Its phases carry
-``torch.profiler.record_function`` names, the counterpart of the JAX
-package's ``obs.trace.phase`` scopes: ``base_unroll``, ``local_terms``
-(with SAMA's ``meta_pass`` and ``cd_passes`` inside), ``finalize``,
-``meta_update``.
+every gate is a 0-d tensor on the device. Its phases are
+``repro_torch.obs.trace.phase`` names, as in the JAX package:
+``base_unroll``, ``local_terms`` (with SAMA's ``meta_pass`` and
+``cd_passes`` inside), ``finalize``, ``meta_update``: always a
+``torch.profiler.record_function`` range, and a host span under an
+activated tracer.
 """
 
 from __future__ import annotations
@@ -30,13 +31,14 @@ import dataclasses
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch import tree as tu
 from repro_torch.core import methods as methods_mod
 from repro_torch.core.bilevel import BilevelSpec
 from repro_torch.core.methods import HypergradMethod, MethodContext
 from repro_torch.core.sama import global_norm
+from repro_torch.obs.metrics import packed_read
+from repro_torch.obs.trace import phase
 from repro_torch.optim import Optimizer, OptState, apply_updates
 from repro_torch.scale import accum as accum_mod
 from repro_torch.scale import policy as policy_mod
@@ -261,7 +263,7 @@ def make_meta_step(
     micro = cfg.scale.microbatch
 
     def meta_step(state: EngineState, base_batches, meta_batch):
-        with record_function("base_unroll"):
+        with phase("base_unroll"):
             (theta, b_state, g_base, st_at_g, base_losses, scale_state,
              base_ok) = _unroll_base(spec, base_opt, state.theta, state.base_opt_state,
                                      state.lam, base_batches, scale_cfg=cfg.scale,
@@ -269,12 +271,12 @@ def make_meta_step(
         ctx = make_context(base_opt, state, base_batches, meta_batch,
                            theta=theta, base_opt_state=st_at_g, g_base=g_base,
                            loss_scale=scale_state.scale if scale_state is not None else None)
-        with record_function("local_terms"):
+        with phase("local_terms"):
             terms = methods_mod.validate_terms(method, accum_mod.microbatch_local_terms(
                 method, spec, ctx, micro, policy.accum_torch))
-        with record_function("finalize"):
+        with phase("finalize"):
             hyper, theta_post = method.finalize(terms, ctx)
-        with record_function("meta_update"):
+        with phase("meta_update"):
             lam, m_state, theta_post, meta_ok = guarded_meta_update(
                 meta_opt, hyper, theta_post, state, theta_pre=theta,
                 guard=policy.dynamic_scaling, base_ok=base_ok)
@@ -293,29 +295,26 @@ def make_meta_step(
     return meta_step
 
 
-def packed_read(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """The metric dict as Python floats through one device-to-host copy."""
-
-    keys = list(metrics)
-    vals = torch.stack([metrics[k].float().reshape(()) for k in keys]).cpu().tolist()
-    return dict(zip(keys, vals))
-
-
 def run_loop(step_fn, state, batch_iter, num_steps: int, log_every: int = 0,
-             on_step=None) -> Tuple[Any, List[Dict[str, float]]]:
+             on_step=None, obs=None) -> Tuple[Any, List[Dict[str, float]]]:
     """The shared training loop: drive ``step_fn`` over an iterator of
     (base_batches[K], meta_batch), collecting the metrics at the
     ``log_every`` cadence (and on the last step). Metrics are read only
     there, in one device-to-host copy per logged step (:func:`packed_read`);
-    between logs the loop never waits on the device. ``on_step(i, state)``
-    runs after every step (checkpoint hooks)."""
+    between logs the loop never waits on the device. ``obs`` (a
+    ``repro_torch.obs.Obs``) receives the same host dict through
+    ``observe_step`` at the same boundary, so observability adds no sync
+    point. ``on_step(i, state)`` runs after every step (checkpoint hooks)."""
 
     history = []
     for i in range(num_steps):
         base_batches, meta_batch = next(batch_iter)
         state, metrics = step_fn(state, base_batches, meta_batch)
         if log_every and (i % log_every == 0 or i == num_steps - 1):
-            history.append(packed_read(metrics) | {"step": i})
+            row = packed_read(metrics)
+            history.append(row | {"step": i})
+            if obs is not None and obs.enabled:
+                obs.observe_step(i, row)
         if on_step is not None:
             on_step(i, state)
     return state, history

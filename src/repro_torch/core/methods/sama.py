@@ -11,8 +11,6 @@ from __future__ import annotations
 
 import dataclasses
 
-from torch.profiler import record_function
-
 from repro_torch import tree as tu
 from repro_torch.core import sama as sama_mod
 from repro_torch.core.methods.base import (
@@ -22,6 +20,7 @@ from repro_torch.core.methods.base import (
     ReduceContract,
     register_method,
 )
+from repro_torch.obs.trace import phase
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +69,7 @@ class SAMAMethod(HypergradMethod):
 
         from repro_torch.scale import accum  # scale sits above core
 
-        with record_function("meta_pass"):
+        with phase("meta_pass"):
             meta_loss, g_meta = accum.accumulated_value_and_grad(
                 spec.meta_scalar, ctx.theta, ctx.lam, ctx.meta_batch, m, accum_dtype,
                 ctx.loss_scale)
@@ -80,7 +79,7 @@ class SAMAMethod(HypergradMethod):
                 ctx.base_opt, ctx.base_opt_state, ctx.theta, ctx.g_base, g_meta, self.cfg)
             del g_meta
 
-        with record_function("cd_passes"):
+        with phase("cd_passes"):
             eps = sama_mod.step_size(v, v_sumsq, self.cfg)
             theta_p, theta_m = sama_mod.perturbed_params(ctx.theta, v, eps)
 

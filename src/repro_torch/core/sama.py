@@ -28,12 +28,12 @@ from the JAX step by itself).
 
 Gradients are ``torch.autograd.grad`` over fresh leaves that require grad
 (:func:`value_and_grad`); no state tensor ever requires grad. The phases
-carry ``torch.profiler.record_function`` names, the counterpart of the
-JAX package's ``obs.trace.phase``. Under a loss-scaling precision policy
-(f16, ``repro_torch.scale``) every backward pass here takes the live scale
-(``loss_scale``): the loss is multiplied by it before the backward pass so
-the low-precision gradients stay representable, and the results are
-divided by it again (:func:`scaled_value_and_grad`).
+are ``repro_torch.obs.trace.phase`` names, as in the JAX package. Under a
+loss-scaling precision policy (f16, ``repro_torch.scale``) every backward
+pass here takes the live scale (``loss_scale``): the loss is multiplied by
+it before the backward pass so the low-precision gradients stay
+representable, and the results are divided by it again
+(:func:`scaled_value_and_grad`).
 """
 
 from __future__ import annotations
@@ -42,11 +42,11 @@ import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch import tree as tu
 from repro_torch.core import sync
 from repro_torch.core.bilevel import BilevelSpec
+from repro_torch.obs.trace import phase
 from repro_torch.optim import Optimizer, OptState
 
 Tree = Any
@@ -149,7 +149,7 @@ def perturbation_direction(
     the meta loss before its backward pass; the returned loss and
     gradient are unscaled."""
 
-    with record_function("meta_pass"):
+    with phase("meta_pass"):
         meta_loss, g_meta = scaled_value_and_grad(spec.meta_scalar, 0, loss_scale)(
             theta, lam, meta_batch)
         v, v_sumsq = adaptation_product(base_opt, base_opt_state, theta, g_base, g_meta, cfg)
@@ -192,7 +192,7 @@ def central_difference_hypergrad(
             ~= (grad_lam L_base(theta + eps v) - grad_lam L_base(theta - eps v)) / (2 eps)
     """
 
-    with record_function("cd_passes"):
+    with phase("cd_passes"):
         eps = step_size(v, v_sumsq, cfg)
         theta_p, theta_m = perturbed_params(theta, v, eps)
         delta = central_difference_delta(spec, theta_p, theta_m, lam, base_batch,

@@ -8,7 +8,8 @@ scoring and score export in the JAX package's format, behind the
 ``DataOptimizer`` facade where the scorer is one argument. A mesh
 (``repro_torch.launch.mesh``) shards the full-dataset passes, the
 reweighted batches and the meta scorer's meta-training over its data
-axes; the observability hooks wait for ROADMAP queue 1 item 6.
+axes; an ``obs`` pipeline (``repro_torch.obs``) receives the scoring,
+pruning and retraining events and the meta scorer's training metrics.
 """
 
 from repro_torch.dataopt.distributed import batch_sharding, map_batches, score_dataset

@@ -16,12 +16,17 @@ runs on the model's device, or on ``device`` (``"cuda"`` unless the caller
 passes ``device="cpu"``) for a bare ``per_example_fn``. A ``mesh``
 (``repro_torch.launch.mesh``) shards every full-dataset pass over its data
 axes and the meta scorer's meta-training with them (every rank builds the
-same optimizer and gets the same scores); ``obs`` waits for the port of
-``obs/`` (ROADMAP queue 1 item 6) and must be None.
+same optimizer and gets the same scores). ``obs`` (a
+``repro_torch.obs.Obs``) receives the JAX package's events: a
+``dataopt_scores`` log per scoring pass (with ``dataopt_fit_scores_us``
+and ``dataopt_scores_fitted{scorer}``), a ``dataopt_prune_round`` per
+prune round (and ``dataopt_pruned_examples``), a ``dataopt_retrain`` per
+retrain, and the meta scorer's training metrics.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -30,6 +35,7 @@ from repro_torch.dataopt import export as export_mod
 from repro_torch.dataopt import prune as prune_mod
 from repro_torch.dataopt.reweight import ReweightedIterator
 from repro_torch.dataopt.scores import ScoreContext, resolve_scorer
+from repro_torch.obs import NULL_OBS
 
 Tree = Any
 
@@ -61,11 +67,12 @@ class DataOptimizer:
             num_classes = getattr(model.cfg, "num_labels", None)
         if device is None:
             device = model.device if model is not None else "cuda"
+        self.obs = obs if obs is not None else NULL_OBS
         self.model = model
         self.ctx = ScoreContext(per_example_fn=per_example_fn, init_fn=init_fn, train=train,
                                 meta=meta, fields=fields, mesh=mesh, batch_size=batch_size,
-                                seed=seed, theta=theta, num_classes=num_classes, obs=obs,
-                                device=device)
+                                seed=seed, theta=theta, num_classes=num_classes,
+                                obs=self.obs if self.obs.enabled else None, device=device)
         self.scorer_name = scorer if isinstance(scorer, str) else getattr(scorer, "name", "custom")
         self.scorer = resolve_scorer(scorer, **scorer_knobs)
         self.scores: Optional[np.ndarray] = None
@@ -76,11 +83,20 @@ class DataOptimizer:
         """Run the scorer over the full train set; caches and returns the
         (N,) keep-priority array."""
 
+        t0 = time.perf_counter()
         scores = np.asarray(self.scorer(self.ctx), np.float32)
         if scores.shape != (self.ctx.n,):
             raise ValueError(f"scorer {self.scorer_name!r} returned shape {scores.shape}, "
                              f"expected ({self.ctx.n},)")
         self.scores = scores
+        if self.obs.enabled:
+            self.obs.histogram("dataopt_fit_scores_us").observe(
+                (time.perf_counter() - t0) * 1e6)
+            self.obs.counter("dataopt_scores_fitted").inc(labels={"scorer": self.scorer_name})
+            self.obs.emit("log", "dataopt_scores", data={
+                "scorer": self.scorer_name, "n": int(scores.size),
+                "mean": float(scores.mean()) if scores.size else 0.0,
+                "finite": bool(np.isfinite(scores).all())})
         return scores
 
     def _require_scores(self) -> np.ndarray:
@@ -113,7 +129,8 @@ class DataOptimizer:
                     scorer=self.scorer, per_example_fn=self.ctx.per_example_fn,
                     init_fn=self.ctx.init_fn, num_classes=self.ctx.num_classes,
                     fields=self.ctx.fields, mesh=self.ctx.mesh, batch_size=self.ctx.batch_size,
-                    seed=self.ctx.seed + r, theta=self.ctx.theta, device=self.ctx.device)
+                    seed=self.ctx.seed + r, theta=self.ctx.theta, obs=self.obs,
+                    device=self.ctx.device)
                 scores = sub_opt.fit_scores()
             # the share of the current survivors to drop so that the kept
             # count tracks (1 - (r + 1) per_round) n of the original
@@ -130,6 +147,12 @@ class DataOptimizer:
             next_mask = np.zeros(n, dtype=bool)
             next_mask[np.flatnonzero(mask)[sub_mask]] = True
             mask = next_mask
+            if self.obs.enabled:
+                self.obs.emit("log", "dataopt_prune_round", data={
+                    "round": r + 1, "rounds": rounds, "kept": int(mask.sum()), "n": n,
+                    "class_balanced": class_balanced})
+        if self.obs.enabled:
+            self.obs.counter("dataopt_pruned_examples").inc(int(n - mask.sum()))
         return prune_mod.apply_mask(train, mask), mask
 
     # -- retraining and evaluation -----------------------------------------
@@ -139,9 +162,14 @@ class DataOptimizer:
         """A fresh model trained on the kept subset (``mask=None``: the
         full-data baseline)."""
 
-        return prune_mod.retrain(self.ctx.per_example_fn, self.ctx.init_fn, self.ctx.train,
-                                 mask=mask, steps=steps, seed=seed, batch=batch, lr=lr,
-                                 fields=self.ctx.fields)
+        theta = prune_mod.retrain(self.ctx.per_example_fn, self.ctx.init_fn, self.ctx.train,
+                                  mask=mask, steps=steps, seed=seed, batch=batch, lr=lr,
+                                  fields=self.ctx.fields)
+        if self.obs.enabled:
+            kept = self.ctx.n if mask is None else int(np.asarray(mask).sum())
+            self.obs.emit("log", "dataopt_retrain", data={
+                "steps": steps, "kept": kept, "n": self.ctx.n})
+        return theta
 
     def evaluate(self, theta: Tree, test: Dict[str, np.ndarray], *,
                  label_key: str = "y_true") -> float:

@@ -35,8 +35,9 @@ same way (``init_fn(seed)``, ``problems.init_data_optimization_lam``), so
 the two packages start from different weights for one seed. Every index
 draw is numpy's and equal in both.
 
-``ctx.obs`` (the observability pipeline) waits for ROADMAP queue 1 item
-6 and must be None. ``ctx.mesh`` (``repro_torch.launch.mesh``) shards
+``ctx.obs`` (a ``repro_torch.obs.Obs``) is handed to the meta scorer's
+``MetaLearner``, whose training metrics then go to the pipeline instead
+of being printed. ``ctx.mesh`` (``repro_torch.launch.mesh``) shards
 every full-dataset pass over its data axes and is forwarded to the meta
 scorer's ``MetaLearner``, whose "auto" schedule is then the single-sync
 one; every rank calls the scorer and gets the same scores.
@@ -61,15 +62,6 @@ from repro_torch.dataopt.distributed import batch_sharding, map_batches, score_d
 from repro_torch.device import resolve_device
 
 Tree = Any
-
-_NO_OBS = ("the observability pipeline (obs=) comes with the port of obs/ "
-           "(ROADMAP queue 1 item 6); pass obs=None")
-
-
-def check_no_obs(obs) -> None:
-    if obs is not None:
-        raise NotImplementedError(_NO_OBS)
-
 
 # ---------------------------------------------------------------------------
 # EMA tracking and EMA-disagreement uncertainty
@@ -142,7 +134,6 @@ class ScoreContext:
 
     def __post_init__(self):
         batch_sharding(self.mesh)  # a non-Mesh raises
-        check_no_obs(self.obs)
         self.device = self.mesh.device if self.mesh is not None else resolve_device(self.device)
 
     @property
@@ -397,6 +388,8 @@ def fit_meta(ctx: ScoreContext, *, method: Any = "sama", steps: int = 80, unroll
     kwargs = {"mesh": ctx.mesh, **(learner_kwargs or {})}
     if scale is not None:
         kwargs.setdefault("scale", scale)
+    if ctx.obs is not None:  # the meta-train reports through the caller's obs
+        kwargs.setdefault("obs", ctx.obs)
     learner = MetaLearner(spec, base_opt="adam", base_lr=base_lr, meta_opt="adam",
                           meta_lr=meta_lr, method=method, unroll_steps=unroll,
                           schedule=schedule, **kwargs)
@@ -405,9 +398,14 @@ def fit_meta(ctx: ScoreContext, *, method: Any = "sama", steps: int = 80, unroll
     it = BatchIterator(ctx.train, ctx.meta_data, batch_size=batch, meta_batch_size=meta_batch,
                        unroll=unroll, seed=ctx.seed, fields=ctx.fields, device=ctx.device)
 
+    obs_on = ctx.obs is not None and ctx.obs.enabled
+
     def fit_chunk(n_steps):
-        for row in learner.fit(it, n_steps, log_every=log_every):
-            if ctx.mesh is None or ctx.mesh.rank == 0:
+        # with an obs pipeline run_loop emits the metrics (and scale and
+        # gate) events at the log_every cadence; without one, print them
+        history = learner.fit(it, n_steps, log_every=log_every)
+        if not obs_on and (ctx.mesh is None or ctx.mesh.rank == 0):
+            for row in history:
                 print({k: round(v, 4) for k, v in row.items()})
 
     if ema_decay <= 0.0:

@@ -26,7 +26,11 @@ kernel, so a run can show that its main path went through the kernel:
 reset the counts, drive the path, read :func:`launches`. Beside them,
 :func:`route_counts` counts the routing decisions by (route, reason), so a
 run can show which passes took which route (the dispatch log keeps only
-the latest 4096).
+the latest 4096). When the process-global obs pipeline
+(``repro_torch.obs.set_default``) is enabled, every decision is mirrored
+into it: ``dispatch_total{kernel,backend,reason}`` counts calls, and a
+``dispatch`` event marks the first of each triple
+(``Obs.observe_dispatch``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import contextlib
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
+
+from repro_torch import obs as obs_mod
 
 CUDA = "cuda"
 PLAIN = "plain"
@@ -82,6 +88,9 @@ def route(name: str, x: torch.Tensor, backend: Optional[str] = None) -> str:
         chosen, reason = _device_route(name, x)
     _DISPATCH_LOG.append((name, chosen, reason))
     _ROUTES[(chosen, reason)] += 1
+    obs = obs_mod.get_default()
+    if obs.enabled:
+        obs.observe_dispatch(name, chosen, reason)
     return chosen
 
 

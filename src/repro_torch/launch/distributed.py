@@ -52,7 +52,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from repro_torch import tree as tu
 from repro_torch.core import methods as methods_mod
@@ -68,6 +67,7 @@ from repro_torch.core.engine import (
     step_metrics,
 )
 from repro_torch.launch.mesh import Mesh, data_axes
+from repro_torch.obs.trace import phase
 from repro_torch.optim import Optimizer
 from repro_torch.scale import accum as accum_mod
 from repro_torch.scale import policy as policy_mod
@@ -275,7 +275,7 @@ def make_manual_step(spec: BilevelSpec, base_opt: Optimizer, meta_opt: Optimizer
     def manual_step(state: EngineState, base_batches, meta_batch):
         base_batches = mesh.local(base_batches, 1)
         meta_batch = mesh.local(meta_batch, 0)
-        with record_function("base_unroll"):
+        with phase("base_unroll"):
             (theta, b_state, g_base, st_at_g, losses, scale_state,
              base_ok) = _unroll_base(spec, base_opt, state.theta, state.base_opt_state,
                                      state.lam, base_batches, scale_cfg=cfg.scale,
@@ -284,21 +284,21 @@ def make_manual_step(spec: BilevelSpec, base_opt: Optimizer, meta_opt: Optimizer
                            theta=theta, base_opt_state=st_at_g, g_base=g_base,
                            loss_scale=scale_state.scale if scale_state is not None else None)
         # method stage 1: strictly local terms, no collective
-        with record_function("local_terms"):
+        with phase("local_terms"):
             terms = methods_mod.validate_terms(method, accum_mod.microbatch_local_terms(
                 method, spec, ctx, micro, policy.accum_torch))
         # THE single synchronization point: the contract's terms and the
         # base-loss metric, so that logging costs no second sync
         bucket = {k: terms[k] for k in contract.terms}
         bucket["__base_loss__"] = torch.mean(losses)
-        with record_function("allreduce_flat"):
+        with phase("allreduce_flat"):
             reduced = flat_pmean(cast_for_reduce(bucket), mesh)
         del bucket
         base_loss = reduced.pop("__base_loss__")
         terms = dict(terms, **reduced)
-        with record_function("finalize"):
+        with phase("finalize"):
             hyper, theta_post = method.finalize(terms, ctx)
-        with record_function("meta_update"):
+        with phase("meta_update"):
             lam, m_state, theta_post, meta_ok = guarded_meta_update(
                 meta_opt, hyper, theta_post, state, theta_pre=theta,
                 guard=policy.dynamic_scaling, base_ok=base_ok)

@@ -1,6 +1,5 @@
 """The serving claims on the card, the port's twin of
-``benchmarks/bench_serve.py`` (its ``serve_traced`` arm waits for the
-observability pipeline, ROADMAP queue 1 item 6).
+``benchmarks/bench_serve.py``.
 
     PYTHONPATH=src python -m repro_torch.perf.bench_serve \
         [--device cpu] [--full] [--out DIR]
@@ -15,16 +14,32 @@ bucketed decode views; weights from seed 0):
   ``ServeExecutor`` with 8 decode slots: wall time, sustained qps,
   p50/p99, decode steps, the paged cache's peak bytes;
 * ``serve_paged_memory``: the paged peak against the dense ``slots x
-  max_len`` cache (a meta-device probe, nothing allocated).
+  max_len`` cache (a meta-device probe, nothing allocated);
+* ``serve_traced``: the continuous arm with the whole request lifecycle
+  traced (an obs ring, the health monitors with the SLO burn rate, the
+  per-token events; the untraced arm already runs the always-on flight
+  ring, so this measures what tracing adds): every request's timeline
+  must rebuild (``validate_timelines``) with one terminal event each;
+* ``serve_noflight`` (a record, no row: the JAX bench has none): the
+  continuous arm with the flight ring off (``flight_capacity=0``), which
+  says what the always-on ring costs the untraced executor.
 
 It keeps the JAX bench's hard asserts: tokens identical request by
-request, continuous batching's qps strictly above the serial loop's at 8
-or more requests, and the paged peak strictly below the dense cache.
+request (the traced arm's too), continuous batching's qps strictly above
+the serial loop's at 8 or more requests, the paged peak strictly below
+the dense cache, and tracing within 3% of the untraced arm's median
+wall. That last one is counted (``perf/obs_cost.py``: the traced run's
+obs calls replayed on a fresh pipeline against the untraced one's, and
+the collector's share), because the walls of whole runs on a shared host
+spread by more than 3% from run to run; the wall ratio of the JAX bench
+is recorded beside it, with each arm's collections. It holds on the
+card; on the CPU it is recorded (the claim ``tracing_within_3pct``).
 Writes ``BENCH_torch_serve.json``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -46,8 +61,10 @@ def _workload(cfg, n, gen, seed=0):
 def run(*, fast: bool = True, device="cuda") -> Bench:
     import torch
 
-    from repro_torch import configs, perf, serve
+    from repro_torch import configs, obs as obs_mod, perf, serve
     from repro_torch.models import Model
+    from repro_torch.obs import report as report_mod
+    from repro_torch.perf import obs_cost
 
     n_req = 8 if fast else 16
     gen = 8 if fast else 16
@@ -89,7 +106,8 @@ def run(*, fast: bool = True, device="cuda") -> Bench:
 
     run_continuous()  # warmup
     runs.clear()
-    t_cb = perf.time_callable(run_continuous, warmup=0, repeats=repeats)
+    with obs_cost.GcMeter() as gc_cb:
+        t_cb = perf.time_callable(run_continuous, warmup=0, repeats=repeats)
     qps_cb = n_req / (t_cb.median_us / 1e6)
     ex, ids, stats = runs[-1]
 
@@ -109,6 +127,60 @@ def run(*, fast: bool = True, device="cuda") -> Bench:
     dense = serve.dense_cache_bytes(model, SLOTS, max_len, ex.batcher.dtype)
     assert paged_peak < dense, \
         f"paged peak {paged_peak} >= dense slots x max_len {dense}"
+
+    # -- the whole lifecycle traced: the <= 3% bar ---------------------------
+    def traced_obs():
+        return obs_mod.make_obs(ring=16384, slo_budget=0.25)
+
+    def timed_runs(make_ex):
+        """Whole ``run()`` calls of fresh executors, as serve_continuous
+        times them, and the collections that ran meanwhile."""
+        runs = []
+
+        def once():
+            ex = make_ex()
+            ids = [ex.submit(p, max_new_tokens=g) for p, g in zip(prompts, gens)]
+            runs.append((ex, ids, ex.run()))
+
+        once()  # warmup
+        runs.clear()
+        with obs_cost.GcMeter() as meter:
+            t = perf.time_callable(once, warmup=0, repeats=repeats)
+        return t, runs[-1], meter
+
+    pipelines = []
+
+    def traced_executor():
+        pipelines.append(traced_obs())
+        return serve.ServeExecutor(model, params, scfg, obs=pipelines[-1])
+
+    t_traced, (ex_t, ids_t, stats_t), gc_traced = timed_runs(traced_executor)
+    # the always-on flight ring off: what it costs the untraced executor
+    t_bare, _, gc_bare = timed_runs(lambda: serve.ServeExecutor(
+        model, params, dataclasses.replace(scfg, flight_capacity=0)))
+    qps_traced = n_req / (t_traced.median_us / 1e6)
+    obs_t = pipelines[-1]
+    events = obs_t.sink.events()
+    errors = report_mod.validate_timelines(events)
+    assert errors == [], f"broken request timelines: {errors[:5]}"
+    timelines = report_mod.serve_timelines(events)
+    assert len(timelines) == n_req, f"expected {n_req} request timelines, got {len(timelines)}"
+    for tid, evs in timelines.items():
+        terms = [e for e in evs if e.name in report_mod.TERMINAL_NAMES]
+        assert len(terms) == 1, f"trace {tid}: {len(terms)} terminal events"
+    assert stats_t.ttft.n == n_req and stats_t.tpot.n == n_req
+    for rid, ref in zip(ids_t, serial_out):
+        assert ex_t.results[rid].tokens == ref, f"traced/serial token mismatch on request {rid}"
+    # what tracing costs, counted (perf/obs_cost.py): the walls of whole
+    # runs on a shared host spread too far to resolve 3%, and are reported
+    cost = obs_cost.serve_cost(obs_t, ex_t.flight, traced_obs, t_cb.median_us / 1e6,
+                               flight_capacity=scfg.flight_capacity,
+                               snapshot_every=scfg.flight_snapshot_every)
+    overhead = cost["traced"]["ratio"]
+    wall_ratio = t_traced.median_us / t_cb.median_us
+    if torch.device(device).type == "cuda":
+        assert overhead <= obs_cost.LIMIT, \
+            f"tracing costs {(overhead - 1) * 100:.2f}% of the untraced run's wall, over 3%"
 
     lat_serial = perf.LatencyStats.from_samples(serial_lat)
     bench.emit_record(perf.PerfRecord(
@@ -133,12 +205,41 @@ def run(*, fast: bool = True, device="cuda") -> Bench:
     bench.emit("serve_paged_memory", 0.0,
                f"paged_peak_bytes={paged_peak};dense_bytes={dense};"
                f"ratio={paged_peak / dense:.3f}")
+    bench.emit_record(perf.PerfRecord(
+        name="serve_traced", us_per_step=t_traced.as_dict(),
+        samples_per_s=qps_traced, latency=stats_t.latency.as_dict(),
+        extra={"arch": ARCH, "requests": n_req, "gen": gen, "slots": SLOTS,
+               "mode": "continuous+trace", "events": len(events),
+               "overhead_vs_untraced": overhead, "counted": cost["traced"],
+               "wall_ratio_vs_untraced": wall_ratio,
+               "collections": {"untraced": gc_cb.as_dict(), "traced": gc_traced.as_dict()},
+               "ttft_p50_us": stats_t.ttft.p50_us, "ttft_p99_us": stats_t.ttft.p99_us,
+               "tpot_p50_us": stats_t.tpot.p50_us, "tpot_p99_us": stats_t.tpot.p99_us,
+               "queue_wait_p50_us": stats_t.queue_wait.p50_us},
+    ))
+    bench.emit("serve_traced", t_traced.median_us,
+               f"qps={qps_traced:.3f};overhead={overhead:.4f};wall_ratio={wall_ratio:.4f};"
+               f"ttft_p50_us={stats_t.ttft.p50_us:.0f};"
+               f"tpot_p50_us={stats_t.tpot.p50_us:.0f};"
+               f"queue_wait_p50_us={stats_t.queue_wait.p50_us:.0f}")
+    bench.emit_record(perf.PerfRecord(
+        name="serve_noflight", us_per_step=t_bare.as_dict(),
+        samples_per_s=n_req / (t_bare.median_us / 1e6),
+        extra={"arch": ARCH, "requests": n_req, "gen": gen, "slots": SLOTS,
+               "mode": "continuous, flight_capacity=0",
+               "flight_ring_cost": cost["flight"],
+               "wall_ratio_untraced_vs_noflight": t_cb.median_us / t_bare.median_us,
+               "collections": gc_bare.as_dict()},
+    ))
+    bench.claim("tracing_within_3pct", overhead <= obs_cost.LIMIT)
     bench.notes.update({
-        "left_out": "serve_traced and its <= 3% tracing-overhead assert wait for the "
-                    "observability pipeline (ROADMAP queue 1 item 6); serve_continuous has "
-                    "no attribution section (the JAX package's attribute() parses XLA HLO)",
+        "left_out": "serve_continuous has no attribution section (the JAX package's "
+                    "attribute() parses XLA HLO; ROADMAP queue 1 item 11)",
         "asserts": ["tokens identical request by request", "qps_continuous > qps_serial "
-                    "at >= 8 requests", "paged peak < dense slots x max_len"]})
+                    "at >= 8 requests", "paged peak < dense slots x max_len",
+                    "every traced request timeline rebuilds with one terminal event",
+                    "tracing's counted cost <= 3% of the untraced median wall "
+                    "(perf/obs_cost.py; on the card)"]})
     return bench
 
 

@@ -118,7 +118,7 @@ def run(cfg=None, *, batch: int = 48, seq: int = 128, unroll: int = 2, warmup: i
     traces while they are read (on the card only)."""
     from repro_torch import api, configs, data, tree
     from repro_torch.core import problems
-    from repro_torch.core.engine import packed_read
+    from repro_torch.obs.metrics import packed_read
     from repro_torch.kernels import dispatch
     from repro_torch.models import Model
     from repro_torch.perf.common import wrench_task

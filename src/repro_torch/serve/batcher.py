@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import common as cm
+from repro_torch.obs.trace import phase
 from repro_torch.serve import prefill as prefill_mod
 from repro_torch.serve.cache import CacheSpec, PagedCache, gather_dense, scatter_token
 from repro_torch.serve.queue import Request
@@ -39,9 +40,7 @@ from repro_torch.serve.queue import Request
 class ServeConfig:
     """Knobs for the serving stack. ``max_len`` bounds prompt + generated
     tokens per request and must be a multiple of ``page_size``;
-    ``dtype=None`` serves in the model config's dtype. The obs, flight
-    recorder and watchdog knobs of the JAX package come with the
-    observability slice."""
+    ``dtype=None`` serves in the model config's dtype."""
 
     slots: int = 4
     page_size: int = 8
@@ -54,6 +53,13 @@ class ServeConfig:
     max_pages: Optional[int] = None
     dtype: Optional[str] = None
     prefill_mode: str = "auto"  # "auto" | "block" | "scan"
+    # flight recorder and hang watchdog (repro_torch.obs.flight):
+    # flight_capacity=0 disables the always-on postmortem ring;
+    # hang_deadline_s=None disables the watchdog thread
+    flight_capacity: int = 2048
+    flight_dir: Optional[str] = None
+    flight_snapshot_every: int = 16   # ticks between flight metric snapshots
+    hang_deadline_s: Optional[float] = None
 
 
 def decode_buckets(spec: CacheSpec, cfg: ServeConfig) -> Tuple[int, ...]:
@@ -85,15 +91,17 @@ def decode_buckets(spec: CacheSpec, cfg: ServeConfig) -> Tuple[int, ...]:
 def fused_step(model, spec: CacheSpec, params, pools: List[torch.Tensor],
                states: List[torch.Tensor], table_view: torch.Tensor, pos: torch.Tensor,
                tokens: torch.Tensor, active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """gather -> decode_step -> scatter -> argmax/finiteness for all lanes.
-    Updates ``pools`` and ``states`` in place; returns (next token (slots,)
-    int32, finite (slots,) bool) on the device."""
+    """gather -> decode_step -> scatter -> argmax/finiteness for all lanes,
+    the ``serve_step`` phase. Updates ``pools`` and ``states`` in place;
+    returns (next token (slots,) int32, finite (slots,) bool) on the
+    device."""
 
-    dense = gather_dense(spec, pools, states, table_view)
-    logits, new_cache = model.decode_step(params, dense, tokens[:, None], pos)
-    scatter_token(spec, pools, new_cache, table_view, pos, active)
-    lg = logits[:, 0].float()
-    return torch.argmax(lg, dim=-1).to(torch.int32), torch.isfinite(lg).all(dim=-1)
+    with phase("serve_step"):
+        dense = gather_dense(spec, pools, states, table_view)
+        logits, new_cache = model.decode_step(params, dense, tokens[:, None], pos)
+        scatter_token(spec, pools, new_cache, table_view, pos, active)
+        lg = logits[:, 0].float()
+        return torch.argmax(lg, dim=-1).to(torch.int32), torch.isfinite(lg).all(dim=-1)
 
 
 @dataclasses.dataclass

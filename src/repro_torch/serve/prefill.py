@@ -15,7 +15,7 @@
   correct mode for the ssm and hybrid families.
 
 ``mode="auto"`` picks block for attention families and scan for
-recurrent ones.
+recurrent ones. Either mode is the ``serve_prefill`` phase.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import RECURRENT_FAMILIES
+from repro_torch.obs.trace import phase
 from repro_torch.serve import cache as cache_mod
 
 
@@ -95,11 +96,12 @@ def chunked_prefill(model, params, prompt: torch.Tensor, cache,
     B, P = prompt.shape
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=prompt.device).long()
-    if mode == "block":
-        if lengths is None:
-            lengths = torch.full((B,), P, dtype=torch.long, device=prompt.device)
-        return _block(model, params, prompt, cache, lengths)
-    return _scan(model, params, prompt, cache, lengths)
+    with phase("serve_prefill"):
+        if mode == "block":
+            if lengths is None:
+                lengths = torch.full((B,), P, dtype=torch.long, device=prompt.device)
+            return _block(model, params, prompt, cache, lengths)
+        return _scan(model, params, prompt, cache, lengths)
 
 
 @torch.no_grad()

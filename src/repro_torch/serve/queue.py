@@ -1,7 +1,6 @@
 """Request queue with admission control, per-request deadlines, and shed
 accounting: the port's copy of the framework-free
-``src/repro/serve/queue.py``, less the obs and flight-recorder hooks,
-which come with the observability slice.
+``src/repro/serve/queue.py``.
 
 ``submit`` either admits a request or sheds it *immediately* (bounded
 depth: backpressure instead of unbounded growth), and ``pop`` drops
@@ -11,6 +10,11 @@ resolve the request with a terminal status.
 
 Time is injected (``clock=``) so deadline behavior is deterministic under
 test: tests advance a fake clock instead of sleeping.
+
+Every request's trace starts here: ``submit`` emits its ``enqueued``
+event (an overflow-shed request's too, so that its timeline reads
+enqueued -> shed) into the obs pipeline and the flight ring, and each
+shed emits a ``queue_shed`` event and counts ``queue_sheds{reason}``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ import time
 import uuid
 from collections import deque
 from typing import Any, Callable, Deque, List, Optional
+
+from repro_torch.obs import NULL_OBS
+from repro_torch.obs.flight import emit_teed
 
 SHED_OVERFLOW = "shed_overflow"
 SHED_DEADLINE = "shed_deadline"
@@ -48,7 +55,10 @@ class QueueClosed(RuntimeError):
 @dataclasses.dataclass
 class Request:
     """One admitted decode request. ``deadline`` is an absolute clock
-    reading (``None`` = no SLO); ``payload`` is opaque to the queue."""
+    reading (``None`` = no SLO); ``payload`` is opaque to the queue.
+    ``trace_id`` is minted at submit and rides on every lifecycle event
+    the request produces (enqueued -> admitted -> prefill -> tokens ->
+    terminal), so its timeline rebuilds from the event stream alone."""
 
     id: int
     payload: Any
@@ -82,12 +92,17 @@ class RequestQueue:
 
     def __init__(self, max_depth: int = 64, *,
                  default_timeout_s: Optional[float] = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 obs=None, flight=None):
         if max_depth < 1:
             raise ValueError("max_depth must be >= 1")
         self.max_depth = max_depth
         self.default_timeout_s = default_timeout_s
         self._clock = clock
+        self._obs = obs if obs is not None else NULL_OBS
+        # the always-on postmortem ring (obs.flight): lifecycle events land
+        # there even when no obs pipeline is enabled
+        self._flight = flight
         self._ids = itertools.count()
         self._q: Deque[Request] = deque()
         self._shed: List[ShedEvent] = []
@@ -106,6 +121,7 @@ class RequestQueue:
 
         now = self._clock()
         timeout_s = self.default_timeout_s if timeout_s is None else timeout_s
+        overflow = None
         with self._lock:
             self._submitted += 1
             req = Request(
@@ -116,15 +132,20 @@ class RequestQueue:
                 raise QueueClosed("queue is closed")
             if len(self._q) >= self.max_depth:
                 self._n_shed_overflow += 1
-                ev = ShedEvent(req, SHED_OVERFLOW, now)
-                self._shed.append(ev)
-                err = QueueFull(
-                    f"queue depth {len(self._q)} at max_depth={self.max_depth}")
-                err.event = ev
-                raise err
-            self._admitted += 1
-            self._q.append(req)
-            return req
+                overflow = ShedEvent(req, SHED_OVERFLOW, now)
+                self._shed.append(overflow)
+                depth = len(self._q)
+            else:
+                self._admitted += 1
+                self._q.append(req)
+        # outside the lock: a monitor's callback may read the queue
+        self._observe_enqueued(req)
+        if overflow is not None:
+            self._observe_shed(overflow)
+            err = QueueFull(f"queue depth {depth} at max_depth={self.max_depth}")
+            err.event = overflow
+            raise err
+        return req
 
     def close(self) -> None:
         with self._lock:
@@ -138,14 +159,18 @@ class RequestQueue:
 
         now = self._clock() if now is None else now
         out: List[Request] = []
+        shed: List[ShedEvent] = []
         with self._lock:
             while self._q and len(out) < n:
                 req = self._q.popleft()
                 if req.expired(now):
                     self._n_shed_deadline += 1
-                    self._shed.append(ShedEvent(req, SHED_DEADLINE, now))
+                    shed.append(ShedEvent(req, SHED_DEADLINE, now))
                     continue
                 out.append(req)
+            self._shed.extend(shed)
+        for ev in shed:
+            self._observe_shed(ev)
         return out
 
     def drain_shed(self) -> List[ShedEvent]:
@@ -155,6 +180,29 @@ class RequestQueue:
         with self._lock:
             shed, self._shed = self._shed, []
             return shed
+
+    def _observe_enqueued(self, req: Request) -> None:
+        """The first lifecycle event of every request's trace."""
+
+        if not self._obs.enabled and self._flight is None:
+            return
+        emit_teed(self._obs, self._flight, "serve", "enqueued", data={
+            "trace_id": req.trace_id, "request_id": req.id,
+            "deadline_s": None if req.deadline is None else req.deadline - req.submit_t,
+        })
+
+    def _observe_shed(self, ev: ShedEvent) -> None:
+        """A shed, as the queue's own accounting: ``queue_sheds{reason}``
+        and a ``queue_shed`` event (the executor emits the request's
+        terminal event)."""
+
+        if not self._obs.enabled and self._flight is None:
+            return
+        if self._obs.enabled:
+            self._obs.counter("queue_sheds").inc(labels={"reason": ev.reason})
+        emit_teed(self._obs, self._flight, "serve", "queue_shed",
+                  data={"reason": ev.reason, "request_id": ev.request.id,
+                        "trace_id": ev.request.trace_id})
 
     # -- introspection -------------------------------------------------------
 

@@ -14,8 +14,11 @@ requested temperature (the ``dataopt.reweight`` sampling distribution), so
 callers can turn scores into sampling probabilities without holding the
 store.
 
-It stays numpy on the host, as in the JAX package. The observability
-events (``obs=``) wait for ROADMAP queue 1 item 6: ``obs`` must be None.
+It stays numpy on the host, as in the JAX package. With ``obs=`` each
+request's trace is ``enqueued`` (the queue) and one terminal event:
+``done`` when answered, ``deadline_miss`` or ``shed`` when shed, the
+decode executor's vocabulary, so the SLO monitor and the timeline checks
+read both planes alike.
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.dataopt import export as export_mod
-from repro_torch.dataopt.scores import check_no_obs
+from repro_torch.obs import NULL_OBS
 from repro_torch.perf.timers import LatencyStats
-from repro_torch.serve.queue import QueueFull, QueueStats, RequestQueue
+from repro_torch.serve.queue import SHED_DEADLINE, QueueFull, QueueStats, RequestQueue
 
 KINDS = ("score", "keep", "weight")
 
@@ -111,11 +114,11 @@ class ScoreAPI:
                  clock: Callable[[], float] = time.monotonic, obs=None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        check_no_obs(obs)
         self.store = store
         self.max_batch = max_batch
+        self._obs = obs if obs is not None else NULL_OBS
         self.queue = RequestQueue(queue_depth, default_timeout_s=default_timeout_s,
-                                  clock=clock)
+                                  clock=clock, obs=self._obs)
         self._clock = clock
         self._latency_s: List[float] = []
         self.answered = 0
@@ -161,6 +164,12 @@ class ScoreAPI:
                 req.payload["future"].set_result(vals[indptr[k]:indptr[k + 1]])
                 self._latency_s.append(now - req.submit_t)
                 self.answered += 1
+                # a score trace is enqueued -> done (no decode stages)
+                self._obs.emit("serve", "done", data={
+                    "trace_id": req.trace_id, "request_id": req.id,
+                    "status": "ok", "kind": kind,
+                    "resident_us": (now - req.submit_t) * 1e6,
+                    "latency_us": (now - req.submit_t) * 1e6})
         self.batches += 1
 
     def run_pending(self) -> int:
@@ -174,6 +183,11 @@ class ScoreAPI:
                 fut = ev.request.payload["future"]
                 if not fut.done():  # overflow futures resolved at submit
                     fut.set_exception(TimeoutError(f"request shed: {ev.reason}"))
+                self._obs.emit("serve", "deadline_miss" if ev.reason == SHED_DEADLINE
+                               else "shed",
+                               data={"trace_id": ev.request.trace_id,
+                                     "request_id": ev.request.id, "status": ev.reason,
+                                     "resident_us": (ev.t - ev.request.submit_t) * 1e6})
             if not batch:
                 break
             self._answer(batch)

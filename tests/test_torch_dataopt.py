@@ -358,16 +358,13 @@ def test_map_batches_pads_by_wrapping_and_trims_as_jax():
         np.testing.assert_array_equal(got[key], np.asarray(want[key]))
 
 
-def test_mesh_and_obs_raise_naming_their_queue_items(dataset):
-    """A mesh is taken now (tests/test_torch_dataopt_distributed.py); what
-    is not a ``launch.mesh.Mesh`` is refused. ``obs`` still waits for
-    ROADMAP queue 1 item 6."""
+def test_a_mesh_that_is_not_a_launch_mesh_raises(dataset):
+    """A mesh is taken (tests/test_torch_dataopt_distributed.py); what is
+    not a ``launch.mesh.Mesh`` is refused."""
     kw = dict(train=dataset, per_example_fn=TPER_EX, init_fn=_tinit, fields=("x", "y"),
               scorer="random", device="cpu")
     with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         dataopt.DataOptimizer(mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        dataopt.DataOptimizer(obs=object(), **kw)
     with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         dataopt.map_batches(lambda b: b, dataset, fields=("x",), mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="launch.mesh.Mesh"):
@@ -376,3 +373,25 @@ def test_mesh_and_obs_raise_naming_their_queue_items(dataset):
     with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         dataopt.ReweightedIterator(dataset, dataset, np.ones(N), batch_size=2,
                                    meta_batch_size=2, unroll=1, mesh=object(), device="cpu")
+
+
+def test_obs_emits_the_reference_events(dataset):
+    """``obs=``: the JAX package's events (scoring, each prune round,
+    retraining: names and data keys, in order) and instruments."""
+    from repro import obs as jobs
+    from repro_torch import obs
+
+    seqs = {}
+    for name, omod in (("torch", obs), ("jax", jobs)):
+        ring = omod.RingSink()
+        o = omod.Obs(sink=ring)
+        jopt, topt = _pair(dataset, "random", obs=o)
+        opt = topt if name == "torch" else jopt
+        _, mask = opt.prune(0.4, rounds=2)
+        opt.retrain(steps=1, mask=mask, batch=16)
+        seqs[name] = ([(e.kind, e.name, sorted(e.data)) for e in ring.events()],
+                      o.metrics.names(), o.metrics.get("dataopt_pruned_examples").total())
+    assert seqs["torch"] == seqs["jax"]
+    assert [n for _, n, _ in seqs["torch"][0]] == [
+        "dataopt_scores", "dataopt_prune_round", "dataopt_scores", "dataopt_prune_round",
+        "dataopt_retrain"]

@@ -56,6 +56,8 @@ def test_package_imports_with_jax_unavailable():
             "import repro_torch.perf.bench_ablation, repro_torch.perf.bench_serve\n"
             "import repro_torch.perf.bench_memory_vs_modelsize\n"
             "import repro_torch.perf.bench_data_pruning, repro_torch.perf.bench_biased_regression\n"
+            "import repro_torch.obs, repro_torch.obs.report, repro_torch.obs.diff\n"
+            "import repro_torch.perf.bench_obs, repro_torch.perf.obs_cost\n"
             "from repro_torch.serve import ScoreAPI, ScoreStore\n"
             "from repro_torch.models import Model, ssm\n"
             "from repro_torch.serve import prefill\n"

@@ -1,5 +1,5 @@
 """The port's twins of the paper benches (``repro_torch.perf.bench_*``:
-Tables 1, 3, 8-9, Figures 1, 3 and 5, and the serving bench):
+Tables 1, 3, 8-9, Figures 1, 3 and 5, the serving bench and the obs bench):
 
 * Figure 5's four hypergradients (SAMA, CG, Neumann, T1-T2) on identical
   numpy X, y and lam: each one's cosine to the closed-form hypergradient
@@ -8,8 +8,7 @@ Tables 1, 3, 8-9, Figures 1, 3 and 5, and the serving bench):
   solve the same 20 x 20 system);
 * each twin end to end on the CPU at a cut size (a few steps, fewer
   rows): its bench file passes both packages' ``validate_bench``, its row
-  names are those of ``benchmarks/baselines/BENCH_<name>.json`` (less
-  ``serve_traced``, which waits for the observability port), and each
+  names are those of ``benchmarks/baselines/BENCH_<name>.json``, and each
   claim is recorded as held, not held or (a memory claim on the CPU) not
   measured;
 * each twin's CLI refuses to run without a card unless given
@@ -107,6 +106,7 @@ CUTS = {
     "data_pruning": dict(steps=2, retrain_steps=2, n=64, n_test=64),
     "biased_regression": dict(steps=5, repeats=1),
     "serve": dict(),
+    "obs": dict(pairs=1, steps=2),
 }
 
 
@@ -120,7 +120,7 @@ def test_twin_runs_on_the_cpu_with_the_jax_rows(name, tmp_path, capsys):
     assert jperf.validate_bench(payload) == []
     assert payload["bench"] == f"torch_{name}" and payload["env"]["backend"] == "cpu"
     baseline = json.loads((ROOT / "benchmarks" / "baselines" / f"BENCH_{name}.json").read_text())
-    want = [r["name"] for r in baseline["rows"] if r["name"] != "serve_traced"]
+    want = [r["name"] for r in baseline["rows"]]
     assert [r["name"] for r in payload["rows"]] == want
     for row in payload["rows"]:
         assert np.isfinite(row["us_per_call"]) and isinstance(row["derived"], dict)

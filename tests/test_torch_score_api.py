@@ -9,7 +9,7 @@
 * under one injected clock, with deadlines and a queue that overflows: the
   same coalesced batch count, answered count, queue counters, latencies,
   and each request's answer or shed reason;
-* ``obs=`` other than None raises, naming ROADMAP queue 1 item 6;
+* ``obs=``: the JAX package's lifecycle events, request by request;
 * ``repro_torch.serve`` exports what ``repro.serve`` exports of it.
 """
 
@@ -145,9 +145,44 @@ def test_an_empty_drain_and_no_requests():
         serve.ScoreAPI(store, max_batch=0)
 
 
-def test_obs_waits_for_the_observability_port():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve.ScoreAPI(serve.ScoreStore(np.zeros(4, np.float32)), obs=object())
+def test_obs_emits_the_reference_events(stores):
+    """``obs=``: each request's trace is ``enqueued`` and one terminal event
+    (``done``, ``deadline_miss``, ``shed``) with the JAX package's data,
+    and the queue's ``queue_shed`` events, in the JAX package's order."""
+    from repro import obs as jobs
+    from repro.obs import report as jreport
+    from repro_torch import obs
+    from repro_torch.obs import report
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    _, _, paths = stores
+    seqs = {}
+    for name, pkg, omod, rmod in (("torch", serve, obs, report), ("jax", jserve, jobs, jreport)):
+        ring = omod.RingSink()
+        clock = Clock()
+        api = pkg.ScoreAPI(pkg.ScoreStore.load(paths["torch"]), max_batch=2, queue_depth=3,
+                           default_timeout_s=5.0, clock=clock, obs=omod.Obs(sink=ring))
+        api.submit([0, 1, 2])
+        api.submit([5], kind="keep")
+        api.run_pending()
+        for ids, kind in (([1], "score"), ([2], "weight"), ([3], "score"), ([4], "keep")):
+            api.submit(ids, kind=kind, temperature=2.0)  # the fourth overflows
+        clock.t = 100.0
+        api.run_pending()
+        events = ring.events()
+        assert rmod.validate_timelines(events) == []
+        rid = {}
+        seqs[name] = [(e.name, rid.setdefault(e.data["trace_id"], len(rid)),
+                       {k: v for k, v in e.data.items() if k != "trace_id"})
+                      for e in events if e.kind == "serve"]
+    assert seqs["torch"] == seqs["jax"]
+    names = [n for n, _, _ in seqs["torch"]]
+    assert (names.count("done"), names.count("deadline_miss"), names.count("shed")) == (2, 3, 1)
 
 
 def test_serve_exports_what_the_jax_package_exports():
