@@ -101,7 +101,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    qps, TTFT/TPOT, memory, and ``flash_decode`` launches = 26 x decode
    steps; a ``torch.profiler`` trace of one decode step goes to DIR, with
    its kernel launches and ``flash_decode``'s share of its device time.
-7. train f32: bert-base at full width and depth in f32, F32_PAIRS (2)
+7. train f32: bert-base at full width and depth in f32, F32_PAIRS (1)
    SAMA meta steps, each from one state through the kernels and again with every
    kernel forced to its plain version (``dispatch.plain_everywhere``, a
    context the model never enters), base Adam eps 1e-3 (see
@@ -110,7 +110,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    largest update (the tolerances of tests/test_torch_sama.py, where the
    port is held against JAX); one step at the paper's eps 1e-8 reported.
 8. train bf16: bert-base in its own dtype, batch 48, seq 128, unroll 2,
-   BF16_STEPS (5) meta steps through ``MetaLearner.fit`` on WRENCH-analog data: step wall
+   BF16_STEPS (2) meta steps through ``MetaLearner.fit`` on WRENCH-analog data: step wall
    time, samples/s, peak memory, each kernel's launches against L(K+3) +
    L(K+1) forwards, L(K+1) dq and dk/dv and one adam_adapt per theta leaf
    per step, and a profiled step's device time by phase and by kernel.
@@ -119,7 +119,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    2: phase 7's held step pairs, with K + 3 CE forwards and K + 1
    backwards per kernel step, and one step at eps 1e-8 reported.
 10. train gemma bf16: two steps of ``python -m repro_torch.launch.train``'s
-   ``main`` at its default arch (gemma3-1b), then 5 meta steps at batch 4,
+   ``main`` at its default arch (gemma3-1b), then 2 meta steps at batch 4,
    seq 1024, unroll 2, meta batch 2 as phase 8 times bert-base, with the
    CE launches (5 forward, 3 backward per step) held as well.
 11. Lion and Adafactor: bert-base in f32 with each at the base level,
@@ -169,13 +169,13 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
 17. distributed (``repro_torch.launch.distributed``): bert-base at full
    width in f32, warm rows, base Adam eps 1e-3 (phase 7's). (a) An NCCL
    group of world size 1 on the card: ``MetaLearner(mesh=,
-   schedule="single_sync")``, three meta steps at batch 16, seq 128,
+   schedule="single_sync")``, two meta steps at batch 16, seq 128,
    unroll 2, each bitwise equal to the one-process Engine step, with
    exactly 3 all-reduces (unroll + 1) and their bytes. (b) Two gloo ranks
    sharing the card (``distributed.spawn``): identical shards bitwise equal
    to the one-process step on one shard for both schedules; distinct
-   shards (16 rows each) three manual steps held to the in-process
-   emulation and three pjit steps to the one-process step on the 32 rows,
+   shards (16 rows each) two manual steps held to the in-process
+   emulation and two pjit steps to the one-process step on the 32 rows,
    phase 7's tolerances, which must hold the two schedules' first steps
    apart (manual vs pjit in eps or hypergrad_norm beyond them); both ranks'
    states bitwise equal after every step; the census (3 manual, the code's
@@ -185,8 +185,22 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    dk/dv and adam_adapt launched on every rank. Two processes time-share one card over gloo, which stages each
    all-reduce through the host: not the paper's multi-GPU throughput.
    (c) ``DataOptimizer(mesh=)`` loss and el2n scores on the two ranks
-   within 1e-5 relative of the one-device pass. (d) A model axis above 1
-   raises ``NotImplementedError``.
+   within 1e-5 relative of the one-device pass.
+24. the model axis (``launch.fsdp``; run right after phase 17): gloo ranks
+   spawned on the card, as phase 17's. (a) bert-base f32 (phase 17's
+   learner) at (data 1, model 2), 32 rows: F32_PAIRS manual and pjit
+   steps, each held on rank 0 at phase 7's tolerances against the
+   one-process Engine step from the gathered state; (b) the same at (2,
+   2), one manual step held against the emulated single-sync step of 2
+   data shards; on both, the launches of the flash forward, dq, dk/dv and
+   adam_adapt on every rank held to the one-process counts, the model
+   group's replicated leaves and metrics bitwise equal (sha256), the data
+   group's blocks equal, the data group's K + 1 all-reduces, the census
+   per group and kind, Adafactor refused; (c) gemma3-1b at full width,
+   MODEL_AXIS_GEMMA_LAYERS layers, bf16 policy, B 4, S 1024, meta batch 2:
+   one manual step at (2, 1), then one at (1, 2) (warm), each rank's peak
+   memory and walls (gloo-bound), the CE kernels launched too.
+   Phase 4 holds adam_adapt at the blocks' sizes (``_shard_sizes``).
 18. moe: qwen2-moe-a2.7b (60 routed experts top-4 and 4 shared, 14.0 B
    parameters). (a) Serving in f32 at full width and depth, random weights
    from a seed, 8 requests of 300-900 tokens on 4 slots, tokens equal to the serial
@@ -198,7 +212,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    the code's formula) with the (call, token) rows whose chosen experts
    differ between the kernel and the plain step counted: with none the
    pair is held at phase 7's tolerances, with some the losses alone; (d)
-   bf16 training at depth 2, batch 4, seq 1024, meta batch 2, 5 meta
+   bf16 training at depth 2, batch 4, seq 1024, meta batch 2, 2 meta
    steps as phase 10, the profiled step's device time also within the
    ``apply_moe`` ranges (the MoE layers' forward).
 19. mla: minicpm3-4b (multi-head latent attention, 62 layers, 4.07 B
@@ -246,7 +260,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    level at its init) each quantity at the larger of those and 1.5 times
    the spread of three plain steps from theta moved by one ulp; the
    launches held to the formula (no attention kernel for rwkv6, the shared
-   block's uses for zamba2); 5 bf16 steps at batch 4, seq 1024, rwkv6 at
+   block's uses for zamba2); 2 bf16 steps at batch 4, seq 1024, rwkv6 at
    its full 24 layers, zamba2 at 9. Every attention-kernel launch of the
    phase at a signature phases 3 and 4 held.
 22. cross-attention: (a-b) whisper-small (audio: 12 encoder and 12
@@ -258,7 +272,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    steps), each request cross-attending to the cache's zero ``cross_kv``
    as in the reference; trained at full depth with 1,500 random frames a
    sequence and S 448: two f32 step pairs at batch 2 held at phase 7's
-   tolerances, 5 bf16 steps at batch 8, meta batch 4 (wall, samples/s,
+   tolerances, 2 bf16 steps at batch 8, meta batch 4 (wall, samples/s,
    tokens/s over K B S, peak, busy share, device time by phase, launches
    held to the formula with the encoder's 12 layers); (c)
    llama-3.2-vision-90b at full width and 10 of its 100 layers (two
@@ -271,7 +285,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    whisper's paths.
 23. observability (``repro_torch.obs``; run right after phase 6, whose
    weights and tokens it takes): (a) bert-base in its own dtype, batch 48,
-   seq 128, unroll 2: OBS_PAIRS_TRAIN (3) pairs of whole arms, each a
+   seq 128, unroll 2: OBS_PAIRS_TRAIN (2) pairs of whole arms, each a
    BF16_STEPS-step ``MetaLearner.fit`` from one copy of the state, obs off
    and on (a JSONL sink, the default monitors, the kernels' routing
    mirrored into the default pipeline; the spans are ``phase_profile``'s,
@@ -285,7 +299,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    DIR/obs_report.txt); ``phase_profile`` spans every training phase,
    written as a Chrome trace that parses. (b) Phase 6's requests on
    gemma3-1b, whole ``run()`` calls of an untraced and a traced executor
-   (an obs ring, the monitors with the SLO burn rate), OBS_PAIRS_SERVE (2)
+   (an obs ring, the monitors with the SLO burn rate), OBS_PAIRS_SERVE (1)
    pairs, the order alternating: tokens equal between the arms and to
    phase 6's, every request's timeline rebuilt with one terminal event,
    tracing's counted cost over the untraced median wall at most
@@ -331,11 +345,11 @@ SEED = 0
 #: phase keeps its checks, depths and requests; repeats are cut where the
 #: time goes (PERF.md section 6 lists each cut):
 #: the timed bf16 meta steps of phases 8, 10, 18-19, 20(b), 21 and 22 (cut
-#: from 10)
-BF16_STEPS = 5
-#: the held f32 step pairs of phases 7, 9, 11, 15(a), 18-19, 20(a), 21 and
-#: 22 (cut from 3; phase 21 had 2)
-F32_PAIRS = 2
+#: from 10, then from 5 to 2 when phase 24 came)
+BF16_STEPS = 2
+#: the held f32 step pairs of phases 7, 9, 11, 15(a), 18-19, 20(a), 21, 22
+#: and 24(a) (cut from 3, then from 2 when phase 24 came; phase 21 had 2)
+F32_PAIRS = 1
 #: the attention kernels' launch signatures that phases 3 and 4 held
 #: against the plain versions (_decode_sig, _train_sig); phase 20(d) fails
 #: if a twin launches one outside them
@@ -903,8 +917,8 @@ def _tokens_digest(tokens):
 #: walls differ by -8% to +8% (training) and -14% to +13% (serving) from
 #: run to run while obs costs ~0.1%, so what obs costs is counted
 #: (``perf/obs_cost.py``) and held
-OBS_PAIRS_TRAIN = 3
-OBS_PAIRS_SERVE = 2
+OBS_PAIRS_TRAIN = 2
+OBS_PAIRS_SERVE = 1
 #: the reference's bound: obs costs at most 3% of the median wall time
 OBS_LIMIT = obs_cost.LIMIT
 
@@ -1357,9 +1371,11 @@ def phase_train_kernel_check(dev):
     rng = np.random.default_rng(SEED + 17)  # its own inputs, whatever the shapes above draw
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)  # the expert stack's, on the card
     adam_worst = 0.0
-    for n in ADAM_SIZES:
+    # and the blocks phase 24's ranks hold of each sharded leaf
+    sizes = ADAM_SIZES + _shard_sizes()
+    for n in sizes:
         def draw():
-            if n < ADAM_SIZES[3]:
+            if n in ADAM_SIZES[:3]:
                 return _randn(rng, (n,), torch.float32, dev)
             return _dev_randn(gen, n, dev)
 
@@ -1377,7 +1393,7 @@ def phase_train_kernel_check(dev):
                                      f"the tolerance, sum of squares {ss_rel:.2e} relative")
             adam_worst = max(adam_worst, (out - ref).abs().max().item())
             del g, gm, m, v, out, ref
-    log(f"kernel_check: adam_adapt vs plain at N in {ADAM_SIZES}, t in (1, 7): "
+    log(f"kernel_check: adam_adapt vs plain at N in {sizes}, t in (1, 7): "
         f"max_abs_err={adam_worst:.3e} (rtol 1e-5, atol 1e-7; sum of squares rtol 1e-4)")
     dispatch.reset_launches()
     return worst, share_vs_f32, adam_worst
@@ -2409,7 +2425,7 @@ def phase_baselines_f32(base_cfg, dev, batch=16, seq=128, unroll=2):
     return out
 
 
-def phase_table2(cfg, dev, out_dir, batch=48, seq=128, unroll=2, warmup=1, repeats=2):
+def phase_table2(cfg, dev, out_dir, batch=48, seq=128, unroll=2, warmup=1, repeats=1):
     """Paper Table 2 on the card: the six methods of
     ``repro_torch.perf.bench_throughput_memory`` on bert-base in its own
     dtypes, batch 48, seq 128, unroll 2. Per method one line: wall median
@@ -2868,7 +2884,7 @@ def _dist_bert(dev, unroll, mesh=None, schedule="auto"):
 
     cfg = configs.get_config("bert-base").replace(dtype="float32")
     model = Model(cfg, device=dev)
-    knobs = {} if mesh is None else {"mesh": mesh, "schedule": schedule}
+    knobs = {} if mesh is None else {"mesh": mesh, "schedule": schedule, "model_cfg": cfg}
     return cfg, model, _learner(model, dev, unroll, optim.adam(1e-3, eps=1e-3), **knobs)
 
 
@@ -2979,17 +2995,17 @@ def _dist_rank(rank, out_dir, batch, seq, unroll, steps):
     torch.save(out, os.path.join(out_dir, f"phase17_rank{rank}.pt"))
 
 
-def phase_distributed(dev, out_dir, batch=16, seq=128, unroll=2, steps=3):
+def phase_distributed(dev, out_dir, batch=16, seq=128, unroll=2, steps=2):
     """17: the distributed schedules (``launch.distributed``) at bert-base's
     full width in f32, warm rows, base Adam eps 1e-3 (phase 7's setting).
     (a) NCCL, world 1, on cuda:0: ``MetaLearner(mesh=, schedule=
-    "single_sync")``, three meta steps at batch 16, seq 128, unroll 2,
+    "single_sync")``, two meta steps at batch 16, seq 128, unroll 2,
     each bitwise equal to the one-process Engine step from the same state,
     with exactly unroll + 1 = 3 all-reduces per step. (b) Two gloo ranks
     sharing cuda:0 (``distributed.spawn``, the spawn start method): with
     identical 16-row shards both schedules bitwise equal to the one-process
-    step on one shard; with distinct shards (32 rows) three manual steps
-    held to ``emulate_manual_step`` and three pjit steps to the one-process
+    step on one shard; with distinct shards (32 rows) two manual steps
+    held to ``emulate_manual_step`` and two pjit steps to the one-process
     step on the 32 rows, phase 7's tolerances, which must hold the two
     schedules' first steps apart; the two ranks' states bitwise equal
     after every step (sha256); the census (3 manual, the code's count for
@@ -3000,7 +3016,7 @@ def phase_distributed(dev, out_dir, batch=16, seq=128, unroll=2, steps=3):
     the host: this is not the paper's multi-GPU throughput. (c) On the two
     ranks, ``DataOptimizer(mesh=)`` loss and el2n scores within
     tests/test_torch_dataopt.py's f32 tolerance (1e-5 relative) of the
-    one-device pass. (d) A model axis above 1 raises NotImplementedError."""
+    one-device pass. Phase 24 runs the model axis."""
     import torch.distributed as dist
 
     from repro_torch.obs.metrics import packed_read
@@ -3105,23 +3121,296 @@ def phase_distributed(dev, out_dir, batch=16, seq=128, unroll=2, steps=3):
     res["sharded_scoring"] = {k: v for k, v in r0.items() if k.startswith("scoring/")}
     log("distributed_gloo_2_ranks: " + json.dumps(res["gloo_2_ranks"]))
     log("distributed_scoring: " + json.dumps(res["sharded_scoring"]))
+    return res
 
-    # (d) the refusals
-    refused = []
-    for what, call in (("Mesh(data 1, model 2)",
-                        lambda: M.Mesh(("data", "model"), {"data": 1, "model": 2}, None, 0, 1,
-                                       dev)),
-                       ("Mesh(pod 1, data 1, model 4)",
-                        lambda: M.Mesh(("pod", "data", "model"),
-                                       {"pod": 1, "data": 1, "model": 4}, None, 0, 1, dev))):
-        try:
-            call()
-        except NotImplementedError as e:
-            refused.append(f"{what}: {e}")
+
+# ---------------------------------------------------------------------------
+# phase 24: the model axis (FSDP over the model process group)
+# ---------------------------------------------------------------------------
+
+#: gemma3-1b's depth in 24(c) (cut from 26): two ranks of the pure
+#: data-parallel (2, 1) mesh share the card there, each holding the whole
+#: f32 state (37.0 GB a rank at 12 layers; one rank at all 26 takes 56.5
+#: GB, phase 15(b)), and 24(c) runs (1, 2) at the same depth so that the
+#: two meshes' peaks compare
+MODEL_AXIS_GEMMA_LAYERS = 12
+#: phase 24's runs: (case, world, [(mesh shape, schedules, meta steps)]).
+#: bert-base's four ranks run (2, 2) and then, on ranks 0-1 alone, (1, 2);
+#: gemma3-1b's two ranks run (2, 1) and then (1, 2), one step each: the
+#: first step of a process pays its warm-up (cuBLAS, the kernels' function
+#: attributes, the allocator's growth, gloo's connections), so the (1, 2)
+#: step's wall is the warm one (repeats cut for the run's time limit)
+MODEL_AXIS_RUNS = (("bert", 4, (((2, 2), ("manual",), 1),
+                                ((1, 2), ("manual", "pjit"), F32_PAIRS))),
+                   ("gemma", 2, (((2, 1), ("manual",), 1), ((1, 2), ("manual",), 1))))
+
+
+def _model_axis_layouts():
+    """The FSDP layouts phase 24 runs, as (config, model extent): bert-base
+    at model extent 2 in 24(a-b), gemma3-1b at MODEL_AXIS_GEMMA_LAYERS
+    layers and model extent 2 in 24(c)."""
+    from repro_torch import configs
+
+    return [(configs.get_config("bert-base").replace(dtype="float32"), 2),
+            (configs.get_config("gemma3-1b").replace(num_layers=MODEL_AXIS_GEMMA_LAYERS), 2)]
+
+
+def _shard_sizes():
+    """The element counts of the blocks phase 24's ranks hold of each
+    sharded leaf (from shapes alone, on the meta device), where
+    ``adam_adapt`` runs on them: phase 4 holds the kernel at each."""
+    from repro_torch import tree
+    from repro_torch.launch import sharding
+    from repro_torch.models import Model
+
+    sizes = set()
+    for cfg, m in _model_axis_layouts():
+        shapes = Model(cfg, device="meta").init(SEED)
+        mesh = dataclasses.make_dataclass("ShapeMesh", ["shape", "axis_names"])(
+            {"data": 1, "model": m}, ("data", "model"))
+        _, specs = sharding.param_specs(shapes, mesh, cfg)
+        for x, spec in zip(tree.flatten_with_keys(shapes)[1], specs):
+            if sharding.model_dim(spec) is not None:
+                sizes.add(x.numel() // m)
+    return tuple(sorted(sizes))
+
+
+def _replicated_digest(learner):
+    """sha256 over the state's leaves that the layout does not shard
+    (theta's and the base moments' replicated leaves, lam, the meta
+    optimizer's state, the step): a model group holds them bitwise alike."""
+    from repro_torch import tree
+
+    h = hashlib.sha256()
+    sharded = learner.sharding.sharded if learner.sharding is not None else {}
+    for name, x in zip(*tree.flatten_with_keys(learner.state)):
+        if name[name.find("["):] in sharded and name.startswith((".theta", ".base_opt_state")):
             continue
-        raise AssertionError(f"17(d): {what} did not raise")
-    res["refusals"] = refused
-    log("distributed_refusals: " + json.dumps(refused))
+        h.update(x.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _model_axis_learners(case, mesh, schedules, dev, unroll, held):
+    """The model and the learners of one phase 24 run on ``mesh`` (by
+    schedule: "manual", "pjit"), (``held``) the one-process learner of
+    rank 0's references, the batches, the kernels held and their launches
+    per step."""
+    from repro_torch import configs, optim, scale, tree
+    from repro_torch.kernels import weighted_ce as wce
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+
+    kernels = _dist_kernels()
+    if case == "bert":
+        cfg, model, man = _dist_bert(dev, unroll, mesh, "single_sync")
+        learners = [(s, man if s == "manual" else _learner(
+            model, dev, unroll, man.base_opt, mesh=mesh, schedule=s, model_cfg=cfg))
+            for s in schedules]
+        one = _learner(model, dev, unroll, man.base_opt) if held else None
+        rows, _ = _wrench(cfg, 128, 256, 16, SEED + 240)
+        return model, learners, one, _warm_batches(rows, dev, 32, unroll, SEED + 241), \
+            kernels, _train_launches(cfg, unroll, len(tree.tree_leaves(man.state.theta)))
+    cfg = configs.get_config("gemma3-1b").replace(num_layers=MODEL_AXIS_GEMMA_LAYERS)
+    model = Model(cfg, device=dev)
+    learners = [(s, _learner(model, dev, unroll, optim.adam(1e-3), mesh=mesh,
+                             schedule={"manual": "single_sync"}.get(s, s), model_cfg=cfg,
+                             scale=scale.ScaleConfig(policy="bf16")))
+                for s in schedules]
+    make_batch = train.make_batch_fn(cfg, 1024, dev, np.random.default_rng(SEED + 242))
+    batches = lambda i: (make_batch(4, unroll), make_batch(2))  # noqa: E731
+    want = _lm_want(cfg, unroll, len(tree.tree_leaves(learners[0][1].state.theta)))
+    return model, learners, None, batches, kernels + (wce.FWD, wce.BWD), want
+
+
+def _model_axis_rank(rank, out_dir, case, runs, unroll):
+    """One rank of phase 24 (spawned, gloo, sharing cuda:0): each of
+    ``runs`` (mesh shape, schedules, meta steps) in turn, its learners made
+    and freed. "bert": phase 17's bert-base learner (f32, base Adam eps
+    1e-3) on 32 rows, every step held on rank 0 against the one-process
+    step from the gathered state (the Engine step on the global batch; at
+    a data extent of 2 the emulated single-sync step of 2 data shards);
+    at (1, 2) ranks 0-1 alone run. "gemma": gemma3-1b at
+    MODEL_AXIS_GEMMA_LAYERS layers under the bf16 policy, B 4, S 1024,
+    meta batch 2. Per step: the census per group and kind, the wall, the
+    launches (held to the one-process counts) and, for bert, sha256
+    digests; per run each rank's peak memory. Results to
+    phase24_{case}_rank{rank}.pt."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs.metrics import packed_read
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = {"rank": rank, "runs": {}}
+    pair = dist.new_group([0, 1]) if case == "bert" else None  # every rank enters it
+    for shape, schedules, steps in runs:
+        if case == "bert" and shape == (1, 2):
+            if rank > 1:
+                continue
+            mesh = make_mesh(shape, ("data", "model"), group=pair, device=dev)
+        else:
+            mesh = make_mesh(shape, ("data", "model"), device=dev)
+        model, learners, one, batches, kernels, want = _model_axis_learners(
+            case, mesh, schedules, dev, unroll, held=case == "bert" and rank == 0)
+        if case == "bert" and shape[1] > 1:
+            try:  # Adafactor under a live model axis
+                _learner(model, dev, unroll, "adafactor", mesh=mesh, model_cfg=model.cfg)
+                out["adafactor_refusal"] = None
+            except NotImplementedError as e:
+                out["adafactor_refusal"] = str(e)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = {"world_rank": mesh.world_rank, "coords": mesh.coords(), "backend": mesh.backend,
+               "sharded_leaves": 0 if learners[0][1].sharding is None else len(
+                   learners[0][1].sharding.sharded)}
+        for name, learner in learners:
+            state, rows = learner.state, []
+            for i in range(steps):
+                base, meta = batches(i)
+                # the whole state, gathered on every rank (a collective), for
+                # rank 0's one-process reference
+                before = learner.sharding.unshard(state) if case == "bert" else None
+                torch.cuda.synchronize()
+                dispatch.reset_launches()  # the model axis's step only
+                D.collective("barrier", None, mesh, over="world")  # the clocks start together
+                t0 = time.perf_counter()
+                with D.CollectiveCounter() as counter:
+                    new, metrics = learner.step_fn(state, base, meta)
+                    got = packed_read(metrics)
+                wall = time.perf_counter() - t0
+                launches = {k: dispatch.launches(k) for k in kernels}
+                if launches != {k: want[k] for k in kernels}:
+                    raise AssertionError(f"24 {case} {shape} {name} step {i}: launches "
+                                         f"{launches} != {want}")
+                row = {"wall_s": wall, "metrics": got, "launches": launches,
+                       "census": {g: dict(v) for g, v in counter.by_group.items()},
+                       "census_bytes": {g: dict(v) for g, v in counter.bytes_by_group.items()}}
+                if case == "bert":
+                    full_new = learner.sharding.unshard(new)
+                    if one is not None:
+                        if shape[0] == 1:
+                            ref_s, ref_m = one.step_fn(before, base, meta)
+                        else:
+                            ref_s, ref_m = D.emulate_manual_step(
+                                one.spec, one.base_opt, one.meta_opt, one.cfg, shape[0],
+                                before, base, meta)
+                        diff = _diff(got, packed_read(ref_m),
+                                     {"theta": full_new.theta, "lam": full_new.lam},
+                                     {"theta": ref_s.theta, "lam": ref_s.lam}, before)
+                        _hold(f"model axis {case} {shape} {name} step {i}", diff)
+                        row["held"] = diff
+                        del ref_s
+                    del full_new
+                del before
+                learner.state = state = new
+                if case == "bert":  # gemma's trees would take seconds to hash on the host
+                    row["replicated_digest"] = _replicated_digest(learner)
+                    if shape[0] > 1:
+                        row["digest"] = _digest(state)
+                rows.append(row)
+            res[name] = rows
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["runs"][shape] = res
+        del model, learners, one, state, new
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(out_dir, f"phase24_{case}_rank{rank}.pt"))
+
+
+def _model_axis_checks(tag, shape, ranks, unroll):
+    """Phase 24's holds over one run's ranks: a model group's replicated
+    leaves and metrics bitwise alike, a data group's blocks alike, the
+    data group's K + 1 all-reduces a manual step (K + 4 pjit), the model
+    group's gathers."""
+    m = shape[1]
+    for name, rows in ranks[0].items():
+        if not isinstance(rows, list):
+            continue
+        for i in range(len(rows)):
+            for r, res in enumerate(ranks):
+                a, b = ranks[r - r % m][name][i], res[name][i]
+                if a["metrics"] != b["metrics"] or a.get("replicated_digest") != \
+                        b.get("replicated_digest"):
+                    raise AssertionError(f"24 {tag} {name} step {i}: rank {r} departs from "
+                                         f"its model group's rank {r - r % m}")
+                if r >= m and b.get("digest") != ranks[r % m][name][i].get("digest"):
+                    raise AssertionError(f"24 {tag} {name} step {i}: the data group of rank "
+                                         f"{r} holds other blocks")
+                want = unroll + 1 if name == "manual" else unroll + 4
+                if b["census"].get("data", {}).get("all-reduce") != want:
+                    raise AssertionError(f"24 {tag} {name}: data census {b['census']}")
+                if m > 1 and not b["census"].get("model", {}).get("all-gather"):
+                    raise AssertionError(f"24 {tag} {name}: no gather {b['census']}")
+
+
+def phase_model_axis(dev, out_dir, unroll=2):
+    """24: the model mesh axis, FSDP over the model process group
+    (``launch.fsdp``): gloo ranks spawned on cuda:0, as phase 17's.
+    (b) bert-base at full width and depth in f32 (phase 17's learner) on
+    four ranks at (2, 2): one manual step on 32 rows held against the
+    single-sync step of 2 data shards emulated in one process; the data
+    group's ranks hold the same blocks. (a) Then ranks 0-1 at (data 1,
+    model 2): F32_PAIRS manual and pjit steps, each held on rank 0 at phase
+    7's tolerances against the one-process Engine step on the same 32 rows
+    from the gathered state. On both: the flash forward, dq, dk/dv and
+    adam_adapt launched on every rank at the one-process counts; the model
+    group's replicated leaves bitwise equal (sha256); the census per group
+    and kind; Adafactor refused. (c) gemma3-1b at full width (d_model
+    1,152, V 262,144) and MODEL_AXIS_GEMMA_LAYERS layers under the bf16
+    policy, B 4, S 1024, meta batch 2, on two ranks: one manual step at
+    (2, 1), then one at (1, 2); each rank's peak memory and walls; the CE
+    kernels launched too. Ranks time-share one card and
+    gloo stages every collective through the host: the walls measure
+    gloo, not the schedule."""
+    from repro_torch.launch import distributed as D
+
+    store_dir = os.path.join(out_dir, "phase24")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    os.makedirs(store_dir)
+    res = {}
+    for case, world, runs in MODEL_AXIS_RUNS:
+        t0 = time.perf_counter()
+        D.spawn(_model_axis_rank, world, (store_dir, case, runs, unroll), store_dir=store_dir,
+                backend="gloo", timeout_s=900)
+        ranks = [torch.load(os.path.join(store_dir, f"phase24_{case}_rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+        if case == "bert" and ranks[0]["adafactor_refusal"] is None:
+            raise AssertionError("24: adafactor ran under a live model axis")
+        for shape, schedules, steps in runs:
+            tag = f"{case}_{shape[0]}x{shape[1]}"
+            ran = [r["runs"][shape] for r in ranks if shape in r["runs"]]
+            _model_axis_checks(tag, shape, ran, unroll)
+            out = {"backend": ran[0]["backend"], "mesh": {"data": shape[0], "model": shape[1]},
+                   "unroll": unroll, "sharded_leaves": ran[0]["sharded_leaves"],
+                   "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in ran],
+                   "caveat": "gloo-bound: ranks time-share one card and gloo stages every "
+                             "collective through the host"}
+            for name in schedules:
+                rows = ran[0][name]
+                out[name] = {
+                    "steps": steps,
+                    "wall_ms_by_rank": [[1e3 * x["wall_s"] for x in r[name]] for r in ran],
+                    "census_per_step": rows[0]["census"],
+                    "census_bytes_per_step": rows[0]["census_bytes"],
+                    "launches_per_rank": [{k: sum(x["launches"][k] for x in r[name])
+                                           for k in rows[0]["launches"]} for r in ran],
+                    "metrics": [x["metrics"] for x in rows]}
+                if case == "bert":
+                    out[name]["worst_vs_reference"] = {k: max(x["held"][k][2] for x in rows)
+                                                       for k in F32_TOL}
+                    for field in ("theta", "lam"):
+                        out[name][f"{field}_share_of_bound"] = max(
+                            x["held"][f"{field}_share_of_bound"] for x in rows)
+            if case == "bert":
+                out["adafactor_refusal"] = ranks[0]["adafactor_refusal"]
+            res[tag] = out
+            log(f"model_axis_{tag}: " + json.dumps(out))
+        log(f"model_axis_{case}_seconds: {time.perf_counter() - t0:.1f}")
+        torch.cuda.empty_cache()
     return res
 
 
@@ -4015,13 +4304,14 @@ def main():
                   "bf16_vs_f32_share_of_bound": worst_vs_f32,
                   "kernel_ms": timing["ms"], **timing})
     qwen = configs.get_config("qwen2-moe-a2.7b")
-    # 8 of qwen2-moe's 24 layers and 6 of zamba2's 13 uses (cut from 26 and
-    # 13 for the run's time limit), each with its own cache past the 50 MB L2
+    # 4 of qwen2-moe's 24 layers and 3 of zamba2's 13 uses (cut from 26 and
+    # 13, then from 8 and 6 when phase 24 came, for the run's time limit),
+    # each with its own cache, together past the 50 MB L2
     entry[qwen.name] = timed("qwen_decode_time", phase_family_decode_time, dev, qwen,
-                             layers=8)
+                             layers=4)
     zamba = configs.get_config("zamba2-7b")
     entry[zamba.name] = timed("zamba_decode_time", phase_family_decode_time, dev, zamba,
-                              layers=6)
+                              layers=3)
     # phase 22's: whisper-small's 12 decoder layers at its 448-token context,
     # the vision model's 8 self layers of its VISION_LAYERS
     whisper = configs.get_config("whisper-small")
@@ -4039,30 +4329,32 @@ def main():
     t_time = timed("train_kernel_time", phase_train_kernel_time, dev, bert, batch=48, seq=128)
     # the layer timings run over a cut of each model's layers (each with its
     # own inputs, beside the 50 MB L2), for the run's time limit: gemma3-1b's
-    # pattern over 6 layers (5 local, 1 global; cut from 12), qwen2-moe's 3 of
-    # 24 (cut from 6)
+    # pattern over 6 layers (5 local, 1 global; cut from 12), qwen2-moe's 2 of
+    # 24 (cut from 6, then from 3 when phase 24 came)
     for name, e in timed("gemma_attn_time", phase_layer_attn_time, dev,
                          cfg.replace(num_layers=6)).items():
         t_time[name].update(e)
     for name, e in timed("qwen_attn_time", phase_layer_attn_time, dev,
-                         qwen.replace(num_layers=3)).items():
+                         qwen.replace(num_layers=2)).items():
         t_time[name].update(e)
-    # zamba2-7b: 3 of its shared block's 13 uses (cut from 6), each with
-    # its own inputs (350 MB of them, beside the 50 MB L2)
-    zamba_uses = zamba.replace(num_layers=3)
+    # zamba2-7b: 2 of its shared block's 13 uses (cut from 6, then from 3
+    # when phase 24 came), each with its own inputs (117 MB a use, beside
+    # the 50 MB L2)
+    zamba_uses = zamba.replace(num_layers=2)
     for name, e in timed("zamba_attn_time", phase_layer_attn_time, dev, zamba_uses).items():
         t_time[name].update(e)
     # phase 22's layers, each with its own inputs past the 50 MB L2 (cut
-    # from the whole models for the run's time limit): 2 of whisper's 12
-    # encoder layers (B 8, S = T 1,500, non-causal; 129 MB of inputs and
-    # gradients each), 4 of its 12 decoder layers (B 8, S 448; 39 MB each), 2
-    # of the vision model's self layers (B 4, S 1024, G 8, Dh 128)
+    # from the whole models for the run's time limit; halved when phase 24
+    # came): 1 of whisper's 12 encoder layers (B 8, S = T 1,500, non-causal;
+    # 129 MB of inputs and gradients), 2 of its 12 decoder layers (B 8, S
+    # 448; 39 MB each), 1 of the vision model's self layers (B 4, S 1024,
+    # G 8, Dh 128; its q alone 67 MB)
     for tag, c, label, kw in (
-            ("whisper_enc_attn_time", whisper.replace(num_layers=2), "whisper-small encoder",
+            ("whisper_enc_attn_time", whisper.replace(num_layers=1), "whisper-small encoder",
              dict(batch=8, seq=1500, causal=False)),
-            ("whisper_dec_attn_time", whisper.replace(num_layers=4), "whisper-small decoder",
+            ("whisper_dec_attn_time", whisper.replace(num_layers=2), "whisper-small decoder",
              dict(batch=8, seq=448)),
-            ("vision_attn_time", vision.replace(num_layers=2), vision.name,
+            ("vision_attn_time", vision.replace(num_layers=1), vision.name,
              dict(batch=4, seq=1024))):
         for name, e in timed(tag, phase_layer_attn_time, dev, c, label=label, **kw).items():
             t_time[name].update(e)
@@ -4160,7 +4452,14 @@ def main():
     for name, n in dist_out["gloo_2_ranks"]["manual"]["launches_per_rank"][0].items():
         by_name[name]["launches_distributed_per_rank"] = n
         by_name[name]["launches_distributed_path"] = (
-            "distributed manual, each of 2 gloo ranks (3 meta steps)")
+            "distributed manual, each of 2 gloo ranks (2 meta steps)")
+
+    # phase 24: the model axis (FSDP over the model process group), on the
+    # card phase 17 has left
+    axis_out = timed("model_axis", phase_model_axis, dev, args.out)
+    for tag, out in axis_out.items():
+        for name, n in out["manual"]["launches_per_rank"][0].items():
+            by_name[name][f"launches_model_axis_{tag}_per_rank"] = n
 
     # phases 18-19: the moe family and MLA at full width (training at a cut
     # depth: the f32 parameter-sized trees of the step at full depth pass 80 GB;

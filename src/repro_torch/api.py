@@ -14,9 +14,13 @@ census verdict of ``verify_census`` and the checkpoint events;
 (``repro_torch.launch.mesh``) runs the step
 data parallel over ``torch.distributed`` with one of the ``SCHEDULES``:
 the paper's single-sync schedule or the global-batch (pjit) baseline
-(``repro_torch.launch.distributed``). Every rank builds the same learner,
-calls it with the same global batches and keeps the same state; only
-rank 0 writes a checkpoint, and every rank loads it.
+(``repro_torch.launch.distributed``). On a mesh with a model extent above
+1 ``init`` places the state sharded over the model group by the partition
+rules (``launch.fsdp.FSDP`` of theta, with ``model_cfg``'s head
+alignment). Every rank builds the same learner, calls
+it with the same global batches and keeps its part of one state; a
+checkpoint holds the whole leaves, written by rank 0 of the world, and
+every rank loads its part.
 
 Typical use::
 
@@ -74,6 +78,7 @@ class MetaLearner:
         unroll_steps: int = 1,
         mesh=None,
         schedule: str = "auto",
+        model_cfg=None,
         allow_nonlinear: bool = False,
         checkpoint_dir: Optional[str] = None,
         obs=None,
@@ -98,23 +103,43 @@ class MetaLearner:
         self.mesh = mesh
         if schedule == "auto":
             schedule = "single_sync" if mesh is not None else "pjit"
+        if schedule == "single_sync" and mesh is None:
+            raise ValueError("schedule='single_sync' needs a mesh")
+        self.schedule, self.model_cfg = schedule, model_cfg
+        self._allow_nonlinear = allow_nonlinear
+        #: the state's layout over the model group (``launch.fsdp.FSDP``),
+        #: made by ``init`` on a mesh whose model extent exceeds 1
+        self.sharding = None
+        self.step_fn = None if self._sharded_mesh else self._make_step()
+
+    @property
+    def _sharded_mesh(self) -> bool:
+        return self.mesh is not None and self.mesh.model_size > 1
+
+    def _make_step(self):
         from repro_torch.launch.distributed import make_manual_step, make_pjit_step
 
-        if schedule == "single_sync":
-            if mesh is None:
-                raise ValueError("schedule='single_sync' needs a mesh")
-            self.step_fn = make_manual_step(self.spec, self.base_opt, self.meta_opt, self.cfg,
-                                            mesh, allow_nonlinear=allow_nonlinear)
-        else:  # the Engine step, as the global-batch estimator under a mesh
-            self.step_fn = make_pjit_step(self.spec, self.base_opt, self.meta_opt, self.cfg,
-                                          mesh)
-        self.schedule = schedule
+        if self.schedule == "single_sync":
+            return make_manual_step(self.spec, self.base_opt, self.meta_opt, self.cfg,
+                                    self.mesh, allow_nonlinear=self._allow_nonlinear,
+                                    sharding=self.sharding)
+        # the Engine step, as the global-batch estimator under a mesh
+        return make_pjit_step(self.spec, self.base_opt, self.meta_opt, self.cfg, self.mesh,
+                              sharding=self.sharding)
 
     def init(self, theta: Tree, lam: Tree) -> EngineState:
         """Build the EngineState: both levels' params + optimizer moments;
         a loss-scaling precision policy (f16) also seeds its
-        LossScaleState from ``cfg.scale``."""
-        self.state = init_state(theta, lam, self.base_opt, self.meta_opt, scale=self.cfg.scale)
+        LossScaleState from ``cfg.scale``. ``theta`` holds the whole
+        leaves; on a mesh with a model extent above 1 the state keeps this
+        rank's blocks of theta and the base moments (``self.sharding``)."""
+        if self._sharded_mesh:
+            from repro_torch.launch.fsdp import FSDP
+
+            self.sharding = FSDP(theta, self.mesh, self.model_cfg)
+            self.step_fn = self._make_step()
+        self.state = init_state(theta, lam, self.base_opt, self.meta_opt, scale=self.cfg.scale,
+                                sharding=self.sharding)
         return self.state
 
     def step(self, base_batches, meta_batch) -> Dict[str, Any]:
@@ -199,7 +224,8 @@ class MetaLearner:
     def verify_census(self, base_batches, meta_batch) -> Dict[str, Any]:
         """Run one step on these batches under a ``CollectiveCounter`` and
         check the census against the pinned ``unroll_steps + 1``
-        all-reduces (``perf.verify_single_sync``). The learner's state does
+        all-reduces of the data group (``perf.verify_single_sync``; the
+        model group's collectives beside them). The learner's state does
         not advance (the step is a function of it). Meaningful on the
         single-sync schedule: the others pin nothing. Under a mesh every
         rank must call it, as every collective needs every rank. With an
@@ -227,7 +253,8 @@ class MetaLearner:
         ``{checkpoint_dir}/step_{NNNNNN}``. ``meta`` entries are merged into
         the manifest beside the learner's own (method, unroll_steps, and
         the schedule under a mesh). Under a mesh every rank calls it: rank
-        0 writes (the ranks hold one state) and all return after it has."""
+        0 of the world writes (the ranks hold one state; sharded leaves are
+        gathered whole first) and all return after it has."""
 
         if self.state is None:
             raise RuntimeError("nothing to save: no state")
@@ -241,13 +268,16 @@ class MetaLearner:
             manifest_meta["schedule"] = self.schedule
         if meta:
             manifest_meta.update(meta)
-        if self.mesh is None or self.mesh.rank == 0:
+        if self.sharding is not None:
+            checkpoint.save(path, self.state, step=step, meta=manifest_meta,
+                            sharding=self.sharding)
+        elif self.mesh is None or self.mesh.world_rank == 0:
             checkpoint.save(path, self.state, step=step, meta=manifest_meta)
         if self.mesh is not None:
             # every rank returns once the checkpoint is on disk
             from repro_torch.launch.distributed import collective
 
-            collective("barrier", None, self.mesh)
+            collective("barrier", None, self.mesh, over="world")
         if self.obs.enabled:
             self.obs.emit("checkpoint", "save", step=step, data={"path": path})
         return path
@@ -267,7 +297,7 @@ class MetaLearner:
             path = checkpoint.latest_step(self.checkpoint_dir)
             if path is None:
                 raise FileNotFoundError(f"no step_* checkpoints under {self.checkpoint_dir}")
-        state, manifest = checkpoint.restore(path, self.state)
+        state, manifest = checkpoint.restore(path, self.state, sharding=self.sharding)
         # the EngineState structure is method-independent, so a structural
         # match alone would silently resume another estimator's trajectory
         meta = manifest.get("meta", {})

@@ -37,7 +37,17 @@ def _to_numpy(leaf) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def save(path: str, tree: Tree, *, step: Optional[int] = None, meta: Optional[Dict] = None):
+def save(path: str, tree: Tree, *, step: Optional[int] = None, meta: Optional[Dict] = None,
+         sharding=None):
+    """Write ``tree``. ``sharding`` (a ``launch.fsdp.FSDP``): ``tree``
+    holds this rank's blocks of the sharded leaves (theta, or a state);
+    they are gathered whole over the model group, so every rank of the
+    mesh calls, and the world's rank 0 writes the one-rank layout."""
+
+    if sharding is not None:
+        tree = sharding.unshard(tree)
+        if sharding.mesh.world_rank != 0:
+            return
     os.makedirs(path, exist_ok=True)
     names, leaves = tu.flatten_with_keys(tree)
     arrays = [_to_numpy(leaf) for leaf in leaves]
@@ -53,10 +63,12 @@ def save(path: str, tree: Tree, *, step: Optional[int] = None, meta: Optional[Di
         json.dump(manifest, f, indent=1)
 
 
-def restore(path: str, like: Tree) -> Tuple[Tree, Dict]:
+def restore(path: str, like: Tree, *, sharding=None) -> Tuple[Tree, Dict]:
     """Restore into the structure of ``like``: the leaf names must equal
     the manifest's, in order, and each shape its leaf's; each leaf comes
-    back on the device and in the dtype of ``like``'s."""
+    back on the device and in the dtype of ``like``'s. ``sharding`` (a
+    ``launch.fsdp.FSDP``): ``like`` holds this rank's blocks, and each
+    sharded leaf's whole array gives its block (no collective)."""
 
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
@@ -68,12 +80,15 @@ def restore(path: str, like: Tree) -> Tuple[Tree, Dict]:
     with np.load(os.path.join(path, ARRAYS)) as blobs:
         for i, (name, ref) in enumerate(zip(names, leaves_like)):
             arr = blobs[f"a{i}"]
-            if list(arr.shape) != list(ref.shape):
-                raise ValueError(f"{name}: shape {arr.shape} != expected {tuple(ref.shape)}")
             if arr.dtype.name == "bfloat16":  # ml_dtypes, as the JAX package writes it
                 arr = arr.astype(np.float32)
-            restored.append(torch.from_numpy(np.array(arr, copy=True)).to(device=ref.device,
-                                                                         dtype=ref.dtype))
+            t = torch.from_numpy(np.array(arr, copy=True))
+            if sharding is not None:
+                t = sharding.block_of(name, t)
+            if list(t.shape) != list(ref.shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != expected "
+                                 f"{tuple(ref.shape)}")
+            restored.append(t.to(device=ref.device, dtype=ref.dtype))
     return tu.unflatten_like(like, restored), manifest
 
 

@@ -38,7 +38,19 @@ Tree = Any
 
 
 def _vdot(a: Tree, b: Tree) -> torch.Tensor:
+    """This rank's dot product, the one a second differentiation runs
+    through: under a live model axis the gather's and the sharded loss's
+    backward passes make its derivative the whole parameters' (``launch.
+    fsdp``)."""
     return sum(torch.sum(x * y) for x, y in zip(tu.tree_leaves(a), tu.tree_leaves(b)))
+
+
+def _dot_value(a: Tree, b: Tree) -> torch.Tensor:
+    """A dot product's value over the whole parameters (CG's step sizes):
+    under a live model axis each block's share is summed over the model
+    group (``sync.leaf_sum``)."""
+    return sync.leaf_sum(a, [torch.sum(x * y) for x, y in zip(tu.flatten_with_keys(a)[1],
+                                                              tu.flatten_with_keys(b)[1])])
 
 
 def _live(tree: Tree):
@@ -149,13 +161,13 @@ def cg_hypergrad(
 
     x = tu.tree_map(torch.zeros_like, g_meta)
     r = p = g_meta
-    rs = _vdot(r, r)
+    rs = _dot_value(r, r)
     for _ in range(num_iters):
         ap = matvec(p)
-        alpha = rs / torch.clamp_min(_vdot(p, ap), 1e-30)
+        alpha = rs / torch.clamp_min(_dot_value(p, ap), 1e-30)
         x = tu.tree_map(lambda xi, pi: xi + alpha * pi, x, p)
         r = tu.tree_map(lambda ri, api: ri - alpha * api, r, ap)
-        rs_new = _vdot(r, r)
+        rs_new = _dot_value(r, r)
         beta = rs_new / torch.clamp_min(rs, 1e-30)
         p = tu.tree_map(lambda ri, pi: ri + beta * pi, r, p)
         rs = rs_new

@@ -88,11 +88,18 @@ class EngineState(NamedTuple):
 
 
 def init_state(theta: Tree, lam: Tree, base_opt: Optimizer, meta_opt: Optimizer, *,
-               scale: Optional[ScaleConfig] = None) -> EngineState:
+               scale: Optional[ScaleConfig] = None, sharding=None) -> EngineState:
     """``scale``: the EngineConfig's ScaleConfig, so that a loss-scaling
     policy (f16) gets its LossScaleState seeded; omitting it keeps the
-    f32/bf16 default (no scale state)."""
+    f32/bf16 default (no scale state). ``sharding`` (a
+    ``launch.fsdp.FSDP``, made from this theta over a mesh with a model
+    extent above 1) places the state sharded by the partition rules: theta
+    and the base optimizer's moments hold this rank's blocks, lam and the
+    meta optimizer's state stay whole."""
 
+    if sharding is not None:
+        sharding.check_optimizer(base_opt)
+        theta = sharding.shard(theta)
     device = tu.tree_leaves(theta)[0].device
     return EngineState(
         theta=theta,

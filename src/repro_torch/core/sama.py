@@ -93,8 +93,11 @@ def value_and_grad(loss_fn, argnums: int):
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    leaves = tu.tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    """The l2 norm over every leaf; under a live model axis over the whole
+    parameters, each block's share summed over the model group
+    (``sync.leaf_sum``)."""
+    leaves = tu.flatten_with_keys(tree)[1]
+    return torch.sqrt(sync.leaf_sum(tree, [torch.sum(torch.square(x.float())) for x in leaves]))
 
 
 def adaptation_product(

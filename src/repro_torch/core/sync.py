@@ -24,6 +24,17 @@ collective of its own:
 
 Outside :func:`reducing` (the Engine step, the single-sync schedule) every
 function here is the identity.
+
+Under a live model axis (``launch.fsdp``) a model group shares one
+estimate of its data shard. The sharded loss makes every gradient above
+the group's already: the gather that feeds it the whole parameters sums
+the blocks' gradients over the group in its backward, and the loss is the
+group's mean. What the loss cannot do is a plain value over a tree of
+this rank's blocks: a norm or a dot product. :func:`leaf_sum` adds each
+sharded leaf's partial over the model group and each replicated leaf's
+once (``global_norm``, the fused adaptation products' sums of squares,
+CG's dot products), and :func:`all_true` makes a finiteness gate the
+group's. Outside :func:`sharded` both are the plain reductions.
 """
 
 from __future__ import annotations
@@ -48,6 +59,46 @@ def reducing(reducer):
         yield reducer
     finally:
         _ACTIVE.pop()
+
+
+#: the FSDP layouts of the steps that run, innermost last (None: a step
+#: with no model axis)
+_SHARDED: List[Any] = []
+
+
+@contextlib.contextmanager
+def sharded(layout):
+    """Within the block :func:`leaf_sum` and :func:`all_true` reduce over
+    ``layout``'s model group (a ``launch.fsdp.FSDP``, or None: plainly)."""
+
+    _SHARDED.append(layout)
+    try:
+        yield layout
+    finally:
+        _SHARDED.pop()
+
+
+def leaf_sum(tree: Tree, partials: List[Any]):
+    """The sum of ``partials``, one 0-d tensor per leaf of ``tree`` (in
+    ``tree.flatten_with_keys`` order), over the whole parameters: under a
+    live model axis the partials of the leaves the layout shards (this
+    rank's blocks: the leaf's name and block shape) are summed over the
+    model group, and each replicated leaf's is counted once. Plainly the
+    left-to-right sum."""
+
+    layout = _SHARDED[-1] if _SHARDED else None
+    if layout is None:
+        total = partials[0]
+        for p in partials[1:]:
+            total = total + p
+        return total
+    return layout.leaf_sum(tree, partials)
+
+
+def all_true(flag):
+    """A 0-d bool gate, the model group's AND under a live model axis."""
+    layout = _SHARDED[-1] if _SHARDED else None
+    return flag if layout is None else layout.all_true(flag)
 
 
 def active():

@@ -32,14 +32,17 @@ each candidate step it measures (from the initial state, which does not
 advance).
 
 The distributed knobs (``repro_torch.launch``): ``--production-mesh`` runs
-data parallel over the ``torchrun`` ranks (NCCL, one card each:
-``launch.mesh.make_production_mesh``) with the global-batch step unless
+over the ``torchrun`` ranks (NCCL, one card each:
+``launch.mesh.make_production_mesh``: the reference's (data 16, model 16)
+mesh on a world of 256 ranks, the parameters sharded over the model axis
+by ``launch.sharding``'s rules with the config's head alignment; data
+parallel on any other world) with the global-batch step unless
 ``--manual-collectives`` takes the paper's single-sync schedule;
 ``--manual-collectives`` alone runs that schedule on the 1-rank host mesh.
 Every rank draws the same global batches and steps on its rows; rank 0
-prints the lines. A startup line ``{"run": {...}}`` with the mesh's shape
-and the schedule goes to standard error, so that standard output stays
-one JSON line per logged step.
+prints the lines. A startup line ``{"run": {...}}`` with the mesh's shape,
+its model extent and the schedule goes to standard error, so that
+standard output stays one JSON line per logged step.
 
 Every line goes through one ``repro_torch.obs`` pipeline: its console
 sinks print the lines above (and a health monitor's alert, such as a
@@ -128,7 +131,8 @@ def main(argv=None):
     ap.add_argument("--manual-collectives", action="store_true",
                     help="the paper's single-sync schedule (launch.distributed)")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="data parallel over the torchrun ranks, NCCL, one card each")
+                    help="the torchrun ranks, NCCL, one card each: (data 16, model 16) on "
+                         "256 ranks, data parallel on any other world")
     ap.add_argument("--obs-log", default=None, metavar="PATH",
                     help="append structured events (JSONL) for "
                          "`python -m repro_torch.obs.report`")
@@ -143,7 +147,7 @@ def main(argv=None):
     else:
         mesh = make_host_mesh(args.device) if args.manual_collectives else None
         device = args.device
-    lead = mesh is None or mesh.rank == 0
+    lead = mesh is None or mesh.world_rank == 0
     obs = obs_mod.NULL_OBS
     if lead:
         # the console sinks print the CLI's lines: the metrics, checkpoint
@@ -176,7 +180,8 @@ def _train(args, cfg, mesh, device, obs):
     scale_cfg = scale.ScaleConfig(policy=args.precision, microbatch=args.microbatch)
     learner_args = dict(base_opt="adam", base_lr=args.base_lr, meta_opt="adam",
                         meta_lr=args.meta_lr, method=args.method, unroll_steps=args.unroll,
-                        checkpoint_dir=args.ckpt, mesh=mesh, schedule=schedule, obs=obs)
+                        checkpoint_dir=args.ckpt, mesh=mesh, schedule=schedule, obs=obs,
+                        model_cfg=cfg)
     learner = api.MetaLearner(spec, scale=scale_cfg, **learner_args)
     theta = model.init(args.seed)
     lam = problems.init_data_optimization_lam(args.seed + 1, reweight=True, device=model.device)
@@ -203,6 +208,7 @@ def _train(args, cfg, mesh, device, obs):
         "schedule": learner.schedule, "precision": args.precision,
         "microbatch": learner.cfg.scale.microbatch, "device": str(model.device),
         "mesh": dict(mesh.shape) if mesh is not None else None,
+        "model_extent": mesh.model_size if mesh is not None else None,
         "backend": mesh.backend if mesh is not None else None})
 
     if args.obs_log or args.chrome_trace:

@@ -90,10 +90,10 @@ def _fused_product(kernel_call, grads, *stat_trees):
         return out.reshape(g.shape)
 
     tree = tu.tree_map(one, grads, *stat_trees)
-    total = sumsqs[0]
-    for ss in sumsqs[1:]:
-        total = total + ss
-    return tree, total
+    from repro_torch.core import sync  # core imports this package
+
+    # under a live model axis the blocks' sums add over the model group
+    return tree, sync.leaf_sum(grads, sumsqs)
 
 
 # ---------------------------------------------------------------------------

@@ -179,7 +179,9 @@ def init_scale_state(policy: PrecisionPolicy, *, device="cpu") -> Optional[LossS
 
 
 def all_finite(tree: Tree) -> torch.Tensor:
-    """0-d bool tensor: every float leaf of ``tree`` is finite."""
+    """0-d bool tensor: every float leaf of ``tree`` is finite (under a
+    live model axis, on every rank of the model group: ``core.sync.
+    all_true``, so that the group's ranks take one branch of each gate)."""
 
     leaves = [x for x in tu.flatten_with_keys(tree)[1]
               if isinstance(x, torch.Tensor) and x.is_floating_point()]
@@ -188,7 +190,9 @@ def all_finite(tree: Tree) -> torch.Tensor:
     out = torch.isfinite(leaves[0]).all()
     for x in leaves[1:]:
         out = torch.logical_and(out, torch.isfinite(x).all())
-    return out
+    from repro_torch.core import sync  # core imports this package
+
+    return sync.all_true(out)
 
 
 def update_scale(state: LossScaleState, finite: torch.Tensor,

@@ -32,7 +32,7 @@ Pinned:
 * ``MetaLearner`` under a mesh: fit, save on rank 0, load on every rank,
   ``verify_census``, ``profile``;
 * single-process: the nonlinear-contract refusal, ``cast_for_reduce``'s
-  identity rules, the flat bucket's alignment, the model-axis refusal,
+  identity rules, the flat bucket's alignment, meshes with a model axis,
   ``token_cross_entropy(sharded=True)`` against JAX (1e-5), and a rank
   that raises making ``spawn`` raise.
 """
@@ -588,15 +588,32 @@ def test_flat_pmean_one_bucket_aligned_views():
                                                  tree.tree_leaves(tr)))
 
 
-def test_model_axis_raises_naming_the_roadmap_item():
+def test_model_axis_meshes_hold_their_groups_and_data_axes():
+    """A (1, 2) mesh and a (1, 1, 4) pod mesh: their groups (a stand-in
+    object each: building a mesh makes no collective), ranks, coordinates
+    and data axes; the 1-rank host mesh and a pod mesh of extent 1 keep
+    the pure data-parallel layout."""
     cpu = torch.device("cpu")
-    for call in (lambda: M.Mesh(("data", "model"), {"data": 1, "model": 2}, None, 0, 1, cpu),
-                 lambda: M.Mesh(("pod", "data", "model"), {"pod": 1, "data": 1, "model": 4},
-                                None, 0, 1, cpu)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-            call()
+    model_group, world = object(), object()
+    two = M.Mesh(("data", "model"), {"data": 1, "model": 2}, None, 0, 1, cpu,
+                 model_group=model_group, model_rank=1, world_group=world)
+    assert M.data_axes(two) == ("data",) and two.model_size == 2
+    assert (two.world_rank, two.world_size) == (1, 2)
+    assert two.coords() == {"data": 0, "model": 1}
+    assert two.process_group("model") is model_group and two.process_group("world") is world
+    assert two.process_group("data") is None and two.extent("model") == 2
+    assert torch.equal(two.local({"x": torch.arange(8)}, 0)["x"], torch.arange(4, 8))
+    pod = M.Mesh(("pod", "data", "model"), {"pod": 1, "data": 1, "model": 4}, None, 0, 1, cpu,
+                 model_group=model_group, model_rank=3, world_group=world)
+    assert M.data_axes(pod) == ("pod", "data")
+    assert pod.coords() == {"pod": 0, "data": 0, "model": 3} and pod.world_rank == 3
+    assert torch.equal(pod.local({"x": torch.arange(8).reshape(1, 8)}, 1)["x"],
+                       torch.tensor([[6, 7]]))
+    with pytest.raises(ValueError, match="needs a model group"):
+        M.Mesh(("data", "model"), {"data": 1, "model": 2}, None, 0, 1, cpu)
     mesh = M.make_host_mesh(device="cpu")
     assert M.data_axes(mesh) == ("data",) and mesh.shape == {"data": 1, "model": 1}
+    assert mesh.world_group is None and mesh.world_rank == 0
     assert M.data_axes(M.Mesh(("pod", "data", "model"), {"pod": 1, "data": 1, "model": 1},
                               None, 0, 1, torch.device("cpu"))) == ("pod", "data")
 
