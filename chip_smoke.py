@@ -68,9 +68,12 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    losses of qwen2-moe-a2.7b (V 151,936), minicpm3-4b (V 73,448),
    rwkv6-1.6b (V 65,536), zamba2-7b (V 32,000) and whisper-small (R 8 x
    447, V 51,865: odd, its rows off 16-byte boundaries), f32,
-   bf16 and f16 logits (ce and lse within 1e-5 (1 + |ref|); dlogits within
-   1e-6 + 1e-5 |ref| of the plain version in f32, plus half an ulp of the
-   dtype for bf16 and f16);
+   bf16 and f16 logits, and at every phase a row can take in a 16-byte
+   line (``perf/ce_time.py``: V at each residue modulo 4 and 8, V 1, 3
+   and 7, storage offsets 0 and 3; 78 cases) (ce and lse within 1e-5 (1 +
+   |ref|); dlogits within 1e-6 + 1e-5 |ref| of the plain version in f32,
+   plus half an ulp of the dtype for bf16 and f16; a second launch of each
+   bitwise equal to the first);
    ``lion_adapt`` and ``adafactor_adapt`` at bert-base's embedding,
    gemma3-1b's embedding (301,989,888) and a ragged size (as
    ``adam_adapt``); then each kernel's time (per bert-base layer at B 48,
@@ -196,7 +199,15 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    adam_adapt on every rank held to the one-process counts, the model
    group's replicated leaves and metrics bitwise equal (sha256), the data
    group's blocks equal, the data group's K + 1 all-reduces, the census
-   per group and kind, Adafactor refused; (c) gemma3-1b at full width,
+   per group and kind; at (1, 2) also F32_PAIRS manual steps with phase
+   11's Adafactor base, held the same way (its factored statistics summed
+   over the model group), adafactor_adapt in place of adam_adapt; (d)
+   qwen2-moe-a2.7b's SMOKE model (f32) at (1, 2), 4 rows a data shard:
+   one manual step at S 16 (each MoE layer gathers the shard's tokens)
+   and one at S 512 (each rank's rows whole dispatch groups, the
+   load-balance statistics summed over the group), each held on both
+   ranks against the one-process Engine step, its launches equal to that
+   step's; (c) gemma3-1b at full width,
    MODEL_AXIS_GEMMA_LAYERS layers, bf16 policy, B 4, S 1024, meta batch 2:
    one manual step at (2, 1), then one at (1, 2) (warm), each rank's peak
    memory and walls (gloo-bound), the CE kernels launched too.
@@ -1808,79 +1819,46 @@ CE_SHAPES = [("gemma3-1b", 4, 1024, 262_144, True), ("ragged", 1, 37, 5_000, Fal
 ADAPT_SIZES = (23_440_896, 301_989_888, 1_000_003)
 
 
-def _ce_inputs(rng, dev, b, s, v, sliced, dtype):
-    """Logits as the LM loss hands them to weighted_ce (the (B, S - 1, V)
-    view when ``sliced``), int32 targets (R,) and an f32 cotangent (R,),
-    drawn on the card from a seed that ``rng`` draws (a billion normal
-    draws take the host ~10 s)."""
-    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
-    full = (torch.randn((b, s, v), generator=gen, device=dev) * 3).to(dtype)
-    x = full[:, :-1] if sliced else full.reshape(b * s, v)
-    rows = x.numel() // v
-    t = torch.randint(0, v, (rows,), generator=gen, device=dev, dtype=torch.int32)
-    g = torch.randn(rows, generator=gen, device=dev)
-    return x, t, g
-
-
 def phase_ce_kernel_check(dev):
-    """weighted_ce forward and backward against the plain versions: ce and
-    lse within 1e-5 (1 + |ref|), f32 dlogits within 1e-6 + 1e-5 |ref|, and
-    bf16 and f16 dlogits within (1e-5 + half an ulp of their dtype) |ref|
-    of the plain version in f32 on the same inputs, plus one step of the
-    dtype's subnormals (2^-24 for f16, where most of gemma3-1b's dlogits
-    lie: |dlogits| ~ 4e-8 |g| at lse ~ 17, so an absolute term of 1e-6
-    would leave them unchecked)."""
+    """weighted_ce forward and backward against the plain versions
+    (``perf.ce_time.hold``): ce and lse within 1e-5 (1 + |ref|), f32
+    dlogits within 1e-6 + 1e-5 |ref|, and bf16 and f16 dlogits within
+    (1e-5 + half an ulp of their dtype) |ref| of the plain version in f32
+    on the same inputs, plus one step of the dtype's subnormals (2^-24 for
+    f16, where most of gemma3-1b's dlogits lie: |dlogits| ~ 4e-8 |g| at lse
+    ~ 17, so an absolute term of 1e-6 would leave them unchecked); a second
+    launch of each kernel bitwise equal to the first. At CE_SHAPES, then
+    at every phase a row takes in a 16-byte line (``ce_time.
+    check_alignments``: V at each residue modulo 4 and 8 and below one
+    vector, storage offsets 0 and 3), in f32, bf16 and f16."""
     from repro_torch.kernels import dispatch, weighted_ce as wce
+    from repro_torch.perf import ce_time
 
     rng = np.random.default_rng(SEED + 12)
     worst = {"fwd": {}, "bwd": {}}
+
+    def note(key, got):
+        worst["fwd"][key] = max(worst["fwd"].get(key, 0.0), got["fwd"])
+        worst["bwd"][key] = max(worst["bwd"].get(key, 0.0), got["bwd"])
+        worst["bwd"][key + "_share_of_bound"] = max(
+            worst["bwd"].get(key + "_share_of_bound", 0.0), got["bwd_share"])
+
     for name, b, s, v, sliced in CE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            x, t, g = _ce_inputs(rng, dev, b, s, v, sliced, dtype)
-            ce, lse = wce._fwd_cuda(x, t)
-            d = wce._bwd_cuda(x, t, lse, g)
-            torch.cuda.synchronize()
-            x32 = x.float().reshape(-1, v)  # the same values, in f32
-            ce_ref, lse_ref = wce.cross_entropy_fwd_plain(x32, t)
-            for what, a, r in (("ce", ce, ce_ref), ("lse", lse, lse_ref)):
-                excess = _excess(a, r, 1e-5, 1e-5)
-                if not excess <= 1.0:
-                    raise AssertionError(f"weighted_ce {what} vs plain at {name} {dtype}: "
-                                         f"{excess:.3f} of 1e-5 (1 + |ref|)")
+            gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+            x, t, g = ce_time.ce_inputs(gen, dev, b, s, v, dtype, sliced)
             key = str(dtype).replace("torch.", "")
-            worst["fwd"][key] = max(worst["fwd"].get(key, 0.0),
-                                    (ce - ce_ref).abs().max().item(),
-                                    (lse - lse_ref).abs().max().item())
-            del ce, x32
-            d_ref = wce.cross_entropy_bwd_plain(x.float().reshape(-1, v), t, lse_ref, g)
-            if d.dtype != dtype or d.shape != x.shape:
-                raise AssertionError(f"weighted_ce backward returned {d.dtype} {tuple(d.shape)}")
-            rtol, atol = _dlogits_tolerance(dtype)
-            share = _excess(d.reshape(-1, v), d_ref, atol, rtol)
-            if not share <= 1.0:
-                raise AssertionError(f"weighted_ce dlogits vs plain in f32 at {name} {dtype}: "
-                                     f"{share:.3f} of {atol:.3g} + {rtol:.3g} |ref|")
-            worst["bwd"][key] = max(worst["bwd"].get(key, 0.0),
-                                    (d.reshape(-1, v).float() - d_ref).abs().max().item())
-            worst["bwd"][key + "_share_of_bound"] = max(
-                worst["bwd"].get(key + "_share_of_bound", 0.0), share)
-            del x, d, d_ref
+            note(key, ce_time.hold(wce, x, t, g, f"{name} {key}"))
+            del x, t, g
             torch.cuda.empty_cache()
-    log(f"kernel_check: weighted_ce at {[c[:4] for c in CE_SHAPES]} f32, bf16, f16 logits: "
-        f"forward max_abs_err {worst['fwd']}, backward {worst['bwd']}")
+    cases, aligned = ce_time.check_alignments(dev, seed=SEED + 12)
+    for key, w in aligned.items():
+        note(key, w)
+    log(f"kernel_check: weighted_ce at {[c[:4] for c in CE_SHAPES]} and {cases} row "
+        f"alignments (V in {ce_time.ALIGN_V}, offsets 0 and 3), f32, bf16, f16 logits, "
+        f"repeats bitwise: forward max_abs_err {worst['fwd']}, backward {worst['bwd']}")
     dispatch.reset_launches()
     return worst
-
-
-def _dlogits_tolerance(dtype):
-    """(rtol, atol) of dlogits stored in ``dtype`` against the plain version
-    in f32: 1e-5 relative for the arithmetic; for 16-bit stores, half an
-    ulp relative for the rounding, and the spacing of the dtype's
-    subnormals absolute (round-to-nearest is within half of it)."""
-    if dtype == torch.float32:
-        return 1e-5, 1e-6
-    fi = torch.finfo(dtype)
-    return 1e-5 + fi.eps / 2, fi.tiny * fi.eps
 
 
 def _dev_randn(gen, n, dev):
@@ -1920,53 +1898,53 @@ def phase_adapt_kernel_check(dev):
     return worst
 
 
+#: the previous CE kernels' ms per call (forward, backward) by (shape name,
+#: dtype), printed beside this run's: the kernel table of PERF.md section 6
+#: (H100 80GB HBM3, 700 W), the kernels that took an unaligned row's scalar
+#: loop; quoted, not measured here
+CE_BEFORE_MS = {("gemma3-1b", "float32"): (1.447, 3.018),
+                ("gemma3-1b", "bfloat16"): (0.8096, 1.5198),
+                ("gemma3-1b", "float16"): (0.7577, 1.5180),
+                ("qwen2-moe-a2.7b", "float32"): (0.8291, 1.7263),
+                ("minicpm3-4b", "float32"): (0.4501, 0.8880),
+                ("rwkv6-1.6b", "float32"): (0.3611, 0.7432),
+                ("zamba2-7b", "float32"): (0.1824, 0.3643),
+                ("whisper-small", "float32"): (0.2765, 1.1332)}
+
+
 def _ce_times(dev, rng, dtype, shape=CE_SHAPES[0]):
     """weighted_ce forward and backward at an LM loss shape of CE_SHAPES
     (gemma3-1b's (4, 1023, V) view unless ``shape`` names another) with
-    ``dtype`` logits, by CUDA-graph replay, beside
-    the plain versions and ``F.cross_entropy(reduction="none")`` on the same
-    logits (forward; its autograd backward, timed eagerly); the bound from
-    the logits' bytes (the arithmetic is f32 in every instantiation)."""
-    import torch.nn.functional as F
-
+    ``dtype`` logits (``perf.ce_time.time_shape``): by CUDA-graph replay,
+    beside the plain versions, ``F.cross_entropy(reduction="none")`` on the
+    same logits (forward; its autograd backward, timed eagerly) and a copy
+    of the logits' bytes; the bound from the bytes (the arithmetic is f32
+    in every instantiation). The log line carries the earlier kernel's
+    time (CE_BEFORE_MS) beside."""
     from repro_torch.kernels import weighted_ce as wce
+    from repro_torch.perf import ce_time
 
-    _, b, s, v, _ = shape
-    x, t, g = _ce_inputs(rng, dev, b, s, v, True, dtype)
-    rows = t.numel()
-    _, lse = wce._fwd_cuda(x, t)
-    x2 = x.reshape(rows, v)  # a contiguous copy for the library call
-    t64 = t.long()
-    fwd_ms = graph_ms(lambda: wce._fwd_cuda(x, t))
-    bwd_ms = graph_ms(lambda: wce._bwd_cuda(x, t, lse, g))
-    plain_fwd = time_ms(lambda: wce.cross_entropy_fwd_plain(x.reshape(-1, v), t), iters=10)
-    plain_bwd = time_ms(lambda: wce.cross_entropy_bwd_plain(x.reshape(-1, v), t, lse, g),
-                        iters=10)
-    lib_fwd = graph_ms(lambda: F.cross_entropy(x2, t64, reduction="none"))
-    leaf = x2.detach().requires_grad_(True)
-    lib_out = F.cross_entropy(leaf, t64, reduction="none")
-    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaf, g.to(lib_out.dtype),
-                                                  retain_graph=True), iters=10)
-    del leaf, lib_out
-    fwd_ms_2 = graph_ms(lambda: wce._fwd_cuda(x, t))
-    bwd_ms_2 = graph_ms(lambda: wce._bwd_cuda(x, t, lse, g))
-    logits_b = rows * v * x.element_size()
-    name = str(dtype).replace("torch.", "")
-    shape = {"R": rows, "V": v, "dtype": name, "layout": f"({b}, {s - 1}, {v}) view"}
+    shape_name, b, s, v, _ = shape
+    t = ce_time.time_shape(dev, (shape_name, b, s, v), dtype, seed=int(rng.integers(2 ** 31)))
+    rows, name = t["R"], t["dtype"]
+    layout = {"R": rows, "V": v, "dtype": name, "layout": t["layout"]}
+    before = CE_BEFORE_MS.get((shape_name, name), (None, None))
+    logits_b = rows * v * (torch.finfo(dtype).bits // 8)
     out = {}
-    # one exp and about three more operations per logit, in f32
-    for kernel, ms, ms2, plain, lib, nbytes in (
-            (wce.FWD, fwd_ms, fwd_ms_2, plain_fwd, lib_fwd, logits_b + rows * 12),
-            (wce.BWD, bwd_ms, bwd_ms_2, plain_bwd, lib_bwd, 2 * logits_b + rows * 12)):
+    for kernel, p, nbytes, was in ((wce.FWD, "fwd", logits_b + rows * 12, before[0]),
+                                   (wce.BWD, "bwd", 2 * logits_b + rows * 12, before[1])):
+        # one exp and about three more operations per logit, in f32
         bound_ms, bound_by = _bound(nbytes, 4 * rows * v, torch.float32)
+        ms, ms2, plain, lib = (t[f"{p}_ms"], t[f"{p}_ms_repeat"], t[f"{p}_plain_ms"],
+                               t[f"{p}_library_ms"])
         out[kernel] = {"ms": ms, "ms_repeat": ms2, "plain_ms": plain, "library_ms": lib,
-                       "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape}
+                       "bound_ms": bound_ms, "bound_by": bound_by, "copy_ms": t["copy_ms"],
+                       "shape": layout}
         log(f"kernel_time: {kernel} at R={rows} V={v} {name}: ms={ms:.4f} (repeat "
             f"{ms2:.4f}) plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={bound_ms:.4f} "
-            f"({bound_by})")
+            f"({bound_by}) share_of_bound={bound_ms / ms:.3f} copy_ms={t['copy_ms']:.4f} "
+            f"before_ms={was} (the previous kernels, PERF.md section 6)")
     out[wce.BWD]["library_call"] = "autograd backward of F.cross_entropy, eager"
-    del x, x2, t, t64, g, lse
-    torch.cuda.empty_cache()
     return out
 
 
@@ -3134,15 +3112,23 @@ def phase_distributed(dev, out_dir, batch=16, seq=128, unroll=2, steps=2):
 #: GB, phase 15(b)), and 24(c) runs (1, 2) at the same depth so that the
 #: two meshes' peaks compare
 MODEL_AXIS_GEMMA_LAYERS = 12
-#: phase 24's runs: (case, world, [(mesh shape, schedules, meta steps)]).
-#: bert-base's four ranks run (2, 2) and then, on ranks 0-1 alone, (1, 2);
-#: gemma3-1b's two ranks run (2, 1) and then (1, 2), one step each: the
-#: first step of a process pays its warm-up (cuBLAS, the kernels' function
-#: attributes, the allocator's growth, gloo's connections), so the (1, 2)
-#: step's wall is the warm one (repeats cut for the run's time limit)
+#: phase 24's runs: (case, world, [(mesh shape, learners, meta steps)]).
+#: bert-base's four ranks run (2, 2) and then, on ranks 0-1 alone, (1, 2):
+#: the manual and pjit schedules with base Adam and the manual one with
+#: base Adafactor; qwen2-moe's two ranks run (1, 2), its SMOKE widths at S
+#: 16 (each MoE layer gathers the data shard's 64 tokens, one dispatch
+#: group) and at S 512 (each rank's 1,024 tokens a whole dispatch group:
+#: the load-balance statistics summed over the group); gemma3-1b's two
+#: ranks run (2, 1) and then (1, 2), one step each: the first step of a
+#: process pays its warm-up (cuBLAS, the kernels' function attributes, the
+#: allocator's growth, gloo's connections), so the (1, 2) step's wall is
+#: the warm one (repeats cut for the run's time limit)
 MODEL_AXIS_RUNS = (("bert", 4, (((2, 2), ("manual",), 1),
-                                ((1, 2), ("manual", "pjit"), F32_PAIRS))),
+                                ((1, 2), ("manual", "pjit", "adafactor"), F32_PAIRS))),
+                   ("qwen", 2, (((1, 2), ("gathered", "whole_groups"), 1),)),
                    ("gemma", 2, (((2, 1), ("manual",), 1), ((1, 2), ("manual",), 1))))
+#: qwen2-moe's sequence length per learner of 24(d) (4 rows a data shard)
+MODEL_AXIS_QWEN_SEQ = {"gathered": 16, "whole_groups": 512}
 
 
 def _model_axis_layouts():
@@ -3177,24 +3163,29 @@ def _shard_sizes():
 
 def _replicated_digest(learner):
     """sha256 over the state's leaves that the layout does not shard
-    (theta's and the base moments' replicated leaves, lam, the meta
-    optimizer's state, the step): a model group holds them bitwise alike."""
+    (theta's and the base optimizer's replicated leaves, Adafactor's
+    statistics along a replicated dim, lam, the meta optimizer's state,
+    the step): a model group holds them bitwise alike."""
     from repro_torch import tree
 
     h = hashlib.sha256()
-    sharded = learner.sharding.sharded if learner.sharding is not None else {}
-    for name, x in zip(*tree.flatten_with_keys(learner.state)):
-        if name[name.find("["):] in sharded and name.startswith((".theta", ".base_opt_state")):
-            continue
-        h.update(x.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    leaves = tree.flatten_with_keys(learner.state)[1]
+    dims = ([None] * len(leaves) if learner.sharding is None
+            else learner.sharding.sharded_dims(learner.state))
+    for x, dim in zip(leaves, dims):
+        if dim is None:
+            h.update(x.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()
 
 
 def _model_axis_learners(case, mesh, schedules, dev, unroll, held):
-    """The model and the learners of one phase 24 run on ``mesh`` (by
-    schedule: "manual", "pjit"), (``held``) the one-process learner of
-    rank 0's references, the batches, the kernels held and their launches
-    per step."""
+    """The learners of one phase 24 run on ``mesh``, by name ("manual" and
+    "pjit": those schedules with base Adam; "adafactor": the manual
+    schedule with base Adafactor; qwen's "gathered" and "whole_groups":
+    the manual schedule at MODEL_AXIS_QWEN_SEQ), each as (name, learner,
+    the one-process learner of the references (``held``) or None,
+    batches(i) -> (base, meta), the kernels held and their launches per
+    step (None: the reference step's own))."""
     from repro_torch import configs, optim, scale, tree
     from repro_torch.kernels import weighted_ce as wce
     from repro_torch.launch import train
@@ -3203,13 +3194,32 @@ def _model_axis_learners(case, mesh, schedules, dev, unroll, held):
     kernels = _dist_kernels()
     if case == "bert":
         cfg, model, man = _dist_bert(dev, unroll, mesh, "single_sync")
-        learners = [(s, man if s == "manual" else _learner(
-            model, dev, unroll, man.base_opt, mesh=mesh, schedule=s, model_cfg=cfg))
-            for s in schedules]
-        one = _learner(model, dev, unroll, man.base_opt) if held else None
         rows, _ = _wrench(cfg, 128, 256, 16, SEED + 240)
-        return model, learners, one, _warm_batches(rows, dev, 32, unroll, SEED + 241), \
-            kernels, _train_launches(cfg, unroll, len(tree.tree_leaves(man.state.theta)))
+        batches = _warm_batches(rows, dev, 32, unroll, SEED + 241)
+        want = _train_launches(cfg, unroll, len(tree.tree_leaves(man.state.theta)))
+        out = []
+        for s in schedules:
+            if s == "adafactor":  # phase 11's base: lr 1e-3, eps 1e-3
+                opt = optim.adafactor(1e-3, eps=1e-3)
+                learner = _learner(model, dev, unroll, opt, mesh=mesh, model_cfg=cfg)
+                ks = kernels[:-1] + ("adafactor_adapt",)
+                w = {**{k: want[k] for k in kernels[:-1]}, "adafactor_adapt": want["adam_adapt"]}
+            else:
+                opt = man.base_opt
+                learner = man if s == "manual" else _learner(
+                    model, dev, unroll, opt, mesh=mesh, schedule=s, model_cfg=cfg)
+                ks, w = kernels, want
+            one = _learner(model, dev, unroll, opt) if held else None
+            out.append((s, learner, one, batches, ks, w))
+        return out
+    if case == "qwen":
+        cfg = configs.get_smoke_config("qwen2-moe-a2.7b")
+        model = Model(cfg, device=dev)
+        opt = optim.adam(1e-3, eps=1e-3)
+        return [(s, _learner(model, dev, unroll, opt, mesh=mesh, model_cfg=cfg),
+                 _learner(model, dev, unroll, opt),
+                 _lm_warm_batches(cfg, dev, 4, MODEL_AXIS_QWEN_SEQ[s], unroll, SEED + 243),
+                 kernels[:-1] + ("adam_adapt", wce.FWD, wce.BWD), None) for s in schedules]
     cfg = configs.get_config("gemma3-1b").replace(num_layers=MODEL_AXIS_GEMMA_LAYERS)
     model = Model(cfg, device=dev)
     learners = [(s, _learner(model, dev, unroll, optim.adam(1e-3), mesh=mesh,
@@ -3219,22 +3229,26 @@ def _model_axis_learners(case, mesh, schedules, dev, unroll, held):
     make_batch = train.make_batch_fn(cfg, 1024, dev, np.random.default_rng(SEED + 242))
     batches = lambda i: (make_batch(4, unroll), make_batch(2))  # noqa: E731
     want = _lm_want(cfg, unroll, len(tree.tree_leaves(learners[0][1].state.theta)))
-    return model, learners, None, batches, kernels + (wce.FWD, wce.BWD), want
+    return [(s, learner, None, batches, kernels + (wce.FWD, wce.BWD), want)
+            for s, learner in learners]
 
 
 def _model_axis_rank(rank, out_dir, case, runs, unroll):
     """One rank of phase 24 (spawned, gloo, sharing cuda:0): each of
-    ``runs`` (mesh shape, schedules, meta steps) in turn, its learners made
+    ``runs`` (mesh shape, learners, meta steps) in turn, its learners made
     and freed. "bert": phase 17's bert-base learner (f32, base Adam eps
-    1e-3) on 32 rows, every step held on rank 0 against the one-process
-    step from the gathered state (the Engine step on the global batch; at
-    a data extent of 2 the emulated single-sync step of 2 data shards);
-    at (1, 2) ranks 0-1 alone run. "gemma": gemma3-1b at
-    MODEL_AXIS_GEMMA_LAYERS layers under the bf16 policy, B 4, S 1024,
-    meta batch 2. Per step: the census per group and kind, the wall, the
-    launches (held to the one-process counts) and, for bert, sha256
-    digests; per run each rank's peak memory. Results to
-    phase24_{case}_rank{rank}.pt."""
+    1e-3; and phase 11's base Adafactor) on 32 rows, every step held on
+    rank 0 against the one-process step from the gathered state (the
+    Engine step on the global batch; at a data extent of 2 the emulated
+    single-sync step of 2 data shards); at (1, 2) ranks 0-1 alone run.
+    "qwen": qwen2-moe-a2.7b's SMOKE model (f32, base Adam eps 1e-3), 4
+    rows at MODEL_AXIS_QWEN_SEQ, every step held on every rank against
+    the one-process Engine step, whose launches the step's are held to.
+    "gemma": gemma3-1b at MODEL_AXIS_GEMMA_LAYERS layers under the bf16
+    policy, B 4, S 1024, meta batch 2. Per step: the census per group and
+    kind, the wall, the launches (held to the one-process counts) and, for
+    bert and qwen, sha256 digests; per run each rank's peak memory.
+    Results to phase24_{case}_rank{rank}.pt."""
     import torch.distributed as dist
 
     from repro_torch.kernels import dispatch
@@ -3255,26 +3269,25 @@ def _model_axis_rank(rank, out_dir, case, runs, unroll):
             mesh = make_mesh(shape, ("data", "model"), group=pair, device=dev)
         else:
             mesh = make_mesh(shape, ("data", "model"), device=dev)
-        model, learners, one, batches, kernels, want = _model_axis_learners(
-            case, mesh, schedules, dev, unroll, held=case == "bert" and rank == 0)
-        if case == "bert" and shape[1] > 1:
-            try:  # Adafactor under a live model axis
-                _learner(model, dev, unroll, "adafactor", mesh=mesh, model_cfg=model.cfg)
-                out["adafactor_refusal"] = None
-            except NotImplementedError as e:
-                out["adafactor_refusal"] = str(e)
+        learners = _model_axis_learners(case, mesh, schedules, dev, unroll,
+                                        held=case == "qwen" or (case == "bert" and rank == 0))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         res = {"world_rank": mesh.world_rank, "coords": mesh.coords(), "backend": mesh.backend,
                "sharded_leaves": 0 if learners[0][1].sharding is None else len(
                    learners[0][1].sharding.sharded)}
-        for name, learner in learners:
+        for name, learner, one, batches, kernels, want in learners:
             state, rows = learner.state, []
             for i in range(steps):
                 base, meta = batches(i)
                 # the whole state, gathered on every rank (a collective), for
-                # rank 0's one-process reference
-                before = learner.sharding.unshard(state) if case == "bert" else None
+                # the one-process reference
+                before = learner.sharding.unshard(state) if case != "gemma" else None
+                ref = None
+                if want is None:  # the one-process step's launches
+                    dispatch.reset_launches()
+                    ref = one.step_fn(before, base, meta)
+                    want = {k: dispatch.launches(k) for k in kernels}
                 torch.cuda.synchronize()
                 dispatch.reset_launches()  # the model axis's step only
                 D.collective("barrier", None, mesh, over="world")  # the clocks start together
@@ -3290,10 +3303,12 @@ def _model_axis_rank(rank, out_dir, case, runs, unroll):
                 row = {"wall_s": wall, "metrics": got, "launches": launches,
                        "census": {g: dict(v) for g, v in counter.by_group.items()},
                        "census_bytes": {g: dict(v) for g, v in counter.bytes_by_group.items()}}
-                if case == "bert":
+                if case != "gemma":
                     full_new = learner.sharding.unshard(new)
                     if one is not None:
-                        if shape[0] == 1:
+                        if ref is not None:
+                            ref_s, ref_m = ref
+                        elif shape[0] == 1:
                             ref_s, ref_m = one.step_fn(before, base, meta)
                         else:
                             ref_s, ref_m = D.emulate_manual_step(
@@ -3306,9 +3321,9 @@ def _model_axis_rank(rank, out_dir, case, runs, unroll):
                         row["held"] = diff
                         del ref_s
                     del full_new
-                del before
+                del before, ref
                 learner.state = state = new
-                if case == "bert":  # gemma's trees would take seconds to hash on the host
+                if case != "gemma":  # gemma's trees would take seconds to hash on the host
                     row["replicated_digest"] = _replicated_digest(learner)
                     if shape[0] > 1:
                         row["digest"] = _digest(state)
@@ -3316,7 +3331,7 @@ def _model_axis_rank(rank, out_dir, case, runs, unroll):
             res[name] = rows
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         out["runs"][shape] = res
-        del model, learners, one, state, new
+        del learners, learner, one, state, new
         torch.cuda.empty_cache()
     torch.save(out, os.path.join(out_dir, f"phase24_{case}_rank{rank}.pt"))
 
@@ -3340,7 +3355,7 @@ def _model_axis_checks(tag, shape, ranks, unroll):
                 if r >= m and b.get("digest") != ranks[r % m][name][i].get("digest"):
                     raise AssertionError(f"24 {tag} {name} step {i}: the data group of rank "
                                          f"{r} holds other blocks")
-                want = unroll + 1 if name == "manual" else unroll + 4
+                want = unroll + 4 if name == "pjit" else unroll + 1
                 if b["census"].get("data", {}).get("all-reduce") != want:
                     raise AssertionError(f"24 {tag} {name}: data census {b['census']}")
                 if m > 1 and not b["census"].get("model", {}).get("all-gather"):
@@ -3359,13 +3374,18 @@ def phase_model_axis(dev, out_dir, unroll=2):
     from the gathered state. On both: the flash forward, dq, dk/dv and
     adam_adapt launched on every rank at the one-process counts; the model
     group's replicated leaves bitwise equal (sha256); the census per group
-    and kind; Adafactor refused. (c) gemma3-1b at full width (d_model
-    1,152, V 262,144) and MODEL_AXIS_GEMMA_LAYERS layers under the bf16
-    policy, B 4, S 1024, meta batch 2, on two ranks: one manual step at
-    (2, 1), then one at (1, 2); each rank's peak memory and walls; the CE
-    kernels launched too. Ranks time-share one card and
-    gloo stages every collective through the host: the walls measure
-    gloo, not the schedule."""
+    and kind; at (1, 2) also F32_PAIRS manual steps with an Adafactor base
+    (phase 11's: lr 1e-3, eps 1e-3), held the same way. (d) qwen2-moe's
+    SMOKE model at (1, 2) at MODEL_AXIS_QWEN_SEQ: a MoE layer's dispatch
+    groups and load-balance loss over the whole data shard, gathered or
+    summed over the model group, each step held on both ranks against the
+    one-process Engine step and launching what it launches. (c) gemma3-1b
+    at full width (d_model 1,152, V 262,144) and MODEL_AXIS_GEMMA_LAYERS
+    layers under the bf16 policy, B 4, S 1024, meta batch 2, on two
+    ranks: one manual step at (2, 1), then one at (1, 2); each rank's peak
+    memory and walls; the CE kernels launched too. Ranks time-share one
+    card and gloo stages every collective through the host: the walls
+    measure gloo, not the schedule."""
     from repro_torch.launch import distributed as D
 
     store_dir = os.path.join(out_dir, "phase24")
@@ -3378,8 +3398,6 @@ def phase_model_axis(dev, out_dir, unroll=2):
                 backend="gloo", timeout_s=900)
         ranks = [torch.load(os.path.join(store_dir, f"phase24_{case}_rank{r}.pt"),
                             weights_only=False) for r in range(world)]
-        if case == "bert" and ranks[0]["adafactor_refusal"] is None:
-            raise AssertionError("24: adafactor ran under a live model axis")
         for shape, schedules, steps in runs:
             tag = f"{case}_{shape[0]}x{shape[1]}"
             ran = [r["runs"][shape] for r in ranks if shape in r["runs"]]
@@ -3399,14 +3417,12 @@ def phase_model_axis(dev, out_dir, unroll=2):
                     "launches_per_rank": [{k: sum(x["launches"][k] for x in r[name])
                                            for k in rows[0]["launches"]} for r in ran],
                     "metrics": [x["metrics"] for x in rows]}
-                if case == "bert":
+                if case != "gemma":
                     out[name]["worst_vs_reference"] = {k: max(x["held"][k][2] for x in rows)
                                                        for k in F32_TOL}
                     for field in ("theta", "lam"):
                         out[name][f"{field}_share_of_bound"] = max(
                             x["held"][f"{field}_share_of_bound"] for x in rows)
-            if case == "bert":
-                out["adafactor_refusal"] = ranks[0]["adafactor_refusal"]
             res[tag] = out
             log(f"model_axis_{tag}: " + json.dumps(out))
         log(f"model_axis_{case}_seconds: {time.perf_counter() - t0:.1f}")
@@ -4458,8 +4474,9 @@ def main():
     # card phase 17 has left
     axis_out = timed("model_axis", phase_model_axis, dev, args.out)
     for tag, out in axis_out.items():
-        for name, n in out["manual"]["launches_per_rank"][0].items():
-            by_name[name][f"launches_model_axis_{tag}_per_rank"] = n
+        for learner in ("manual", "adafactor", "gathered", "whole_groups"):
+            for name, n in out.get(learner, {}).get("launches_per_rank", [{}])[0].items():
+                by_name[name][f"launches_model_axis_{tag}_{learner}_per_rank"] = n
 
     # phases 18-19: the moe family and MLA at full width (training at a cut
     # depth: the f32 parameter-sized trees of the step at full depth pass 80 GB;

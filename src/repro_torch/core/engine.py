@@ -98,7 +98,6 @@ def init_state(theta: Tree, lam: Tree, base_opt: Optimizer, meta_opt: Optimizer,
     meta optimizer's state stay whole."""
 
     if sharding is not None:
-        sharding.check_optimizer(base_opt)
         theta = sharding.shard(theta)
     device = tu.tree_leaves(theta)[0].device
     return EngineState(

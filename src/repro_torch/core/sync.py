@@ -34,7 +34,10 @@ this rank's blocks: a norm or a dot product. :func:`leaf_sum` adds each
 sharded leaf's partial over the model group and each replicated leaf's
 once (``global_norm``, the fused adaptation products' sums of squares,
 CG's dot products), and :func:`all_true` makes a finiteness gate the
-group's. Outside :func:`sharded` both are the plain reductions.
+group's. A reduction over one dim of a leaf that the layout splits
+(Adafactor's row and column statistics) takes :func:`group_sum` of the
+block's partial sum, over :func:`sharded_dims`. Outside :func:`sharded`
+all of them are the plain reductions.
 """
 
 from __future__ import annotations
@@ -99,6 +102,34 @@ def all_true(flag):
     """A 0-d bool gate, the model group's AND under a live model axis."""
     layout = _SHARDED[-1] if _SHARDED else None
     return flag if layout is None else layout.all_true(flag)
+
+
+def sharded_dims(tree: Tree) -> List[Any]:
+    """Per leaf of ``tree`` (a theta-like tree of this rank's blocks, in
+    ``tree.flatten_with_keys`` order): the dim the layout shards over the
+    model group under a live model axis, None for a replicated leaf; None
+    for every leaf plainly."""
+
+    layout = _SHARDED[-1] if _SHARDED else None
+    if layout is None:
+        from repro_torch import tree as tu
+
+        return [None] * len(tu.tree_leaves(tree))
+    return layout.sharded_dims(tree)
+
+
+def model_extent() -> int:
+    """The model group's extent under a live model axis, else 1."""
+    layout = _SHARDED[-1] if _SHARDED else None
+    return 1 if layout is None else layout.mesh.model_size
+
+
+def group_sum(x):
+    """A partial of this rank's block summed over the model group under a
+    live model axis (differentiable: its backward sums the cotangents
+    over the group); plainly ``x``."""
+    layout = _SHARDED[-1] if _SHARDED else None
+    return x if layout is None else layout.group_sum(x)
 
 
 def active():

@@ -15,7 +15,10 @@ The kernels are ``csrc/weighted_ce.cu``: the forward with one block per
 row (an online max and sum of exponentials, f32 ``ce`` and ``lse``), the
 backward one elementwise pass. They read the rows where they lie: logits
 whose leading axes fold into two strides, such as the LM loss's
-``logits[:, :-1]`` view, are not copied.
+``logits[:, :-1]`` view, are not copied, and a row at any alignment of its
+dtype takes 16-byte loads and stores past a scalar head (the backward's
+stores aligned on the contiguous dlogits, its loads re-phased from the
+logits row's own 16-byte lines).
 """
 
 from __future__ import annotations

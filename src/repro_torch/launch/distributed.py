@@ -349,7 +349,6 @@ def make_manual_step(spec: BilevelSpec, base_opt: Optimizer, meta_opt: Optimizer
     method = cfg.resolve()
     policy = cfg.scale.resolve()
     if fsdp is not None:
-        fsdp.check_optimizer(base_opt)
         spec = fsdp.apply_to_spec(spec)  # inside the policy's casts: gathers move bf16
     spec = policy_mod.apply_to_spec(spec, policy)
     micro = cfg.scale.microbatch
@@ -367,9 +366,13 @@ def make_manual_step(spec: BilevelSpec, base_opt: Optimizer, meta_opt: Optimizer
         group, run on the gradient accumulated over the microbatches."""
         return _pmean_cast_back(g_loc, mesh, over)
 
+    # a model group that shares a data shard splits each microbatch over its
+    # ranks (Mesh.local); under pure DDP each rank's rows are its own shard
+    split = micro if fsdp is not None else 1
+
     def manual_step(state: EngineState, base_batches, meta_batch):
-        base_batches = mesh.local(base_batches, 1)
-        meta_batch = mesh.local(meta_batch, 0)
+        base_batches = mesh.local(base_batches, 1, split)
+        meta_batch = mesh.local(meta_batch, 0, split)
         with sync.sharded(fsdp):
             with phase("base_unroll"):
                 (theta, b_state, g_base, st_at_g, losses, scale_state,
@@ -476,7 +479,6 @@ def make_pjit_step(spec: BilevelSpec, base_opt: Optimizer, meta_opt: Optimizer,
 
     fsdp = _fsdp_for(mesh, "data", sharding)
     if fsdp is not None:
-        fsdp.check_optimizer(base_opt)
         spec = fsdp.apply_to_spec(spec)
     step = make_meta_step(spec, base_opt, meta_opt, cfg)
     if mesh is None:
@@ -484,8 +486,8 @@ def make_pjit_step(spec: BilevelSpec, base_opt: Optimizer, meta_opt: Optimizer,
     reducer = GlobalBatchReducer(mesh)
 
     def pjit_step(state: EngineState, base_batches, meta_batch):
-        base_batches = mesh.local(base_batches, 1)
-        meta_batch = mesh.local(meta_batch, 0)
+        base_batches = mesh.local(base_batches, 1, cfg.scale.microbatch)
+        meta_batch = mesh.local(meta_batch, 0, cfg.scale.microbatch)
         with sync.sharded(fsdp), sync.reducing(reducer):
             new_state, metrics = step(state, base_batches, meta_batch)
             metrics.update(reducer.mean({k: metrics[k] for k in BATCH_MEAN_METRICS}))

@@ -34,15 +34,25 @@ all-gather, the group sum's is the identity, as
 gradient that leaves a loss is then the model group's; the plain values
 taken over a tree of blocks (norms, CG's dot products, finiteness gates)
 go through :meth:`FSDP.leaf_sum` and :meth:`FSDP.all_true`
-(``core.sync``). Splitting rows within a model group is the reference's
-microbatching across the group: a MoE layer routes each rank's tokens as
-one dispatch group, as JAX's step does with its data shard cut into M =
-model-extent microbatches.
+(``core.sync``).
 
-Adafactor's factored second moment sums over the last two dims of a leaf,
-which a sharded dim splits: under a live model axis it raises (ROADMAP
-queue 1 item 12). Gathering per layer, with prefetch, is later work: here
-a loss gathers every leaf at its entry.
+Two things of a loss are not row means, and the loss's entry marks its
+rows as split over the group (``models.moe.rows_split``) for them: a MoE
+layer routes the data shard's tokens in dispatch groups and takes its
+load-balance loss over all of them. Where this rank's rows hold whole
+dispatch groups it routes them itself and sums the load-balance
+statistics over the group (:meth:`FSDP.group_sum`: forward and backward
+an all-reduce); otherwise it gathers the layer's tokens over the group
+(:meth:`FSDP.gather_rows`) and keeps its rows of the output. Either way
+the layer computes JAX's function of the whole data shard.
+
+Adafactor's factored second moment averages a 2-D leaf's squared
+gradient over each of its dims; over a sharded dim the block's sum goes
+through :meth:`FSDP.group_sum` (``optim.optimizers``), and the statistic
+indexed by the sharded dim is stored as a block of its own (the layout of
+``.base_opt_state.nu``'s ``r``, ``c`` and ``v`` leaves). Gathering per
+layer, with prefetch, is later work: here a loss gathers every leaf at
+its entry.
 """
 
 from __future__ import annotations
@@ -56,13 +66,9 @@ from repro_torch.core.bilevel import BilevelSpec
 from repro_torch.launch.distributed import collective
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.sharding import Spec, model_dim, param_specs, shard, unshard
+from repro_torch.models import moe
 
 Tree = Any
-
-#: Adafactor under a live model axis
-ADAFACTOR_REFUSED = ("adafactor factors its second moment over the last two dims of each "
-                     "leaf, and a dim sharded over the model axis splits those sums: not "
-                     "ported under a live model axis (ROADMAP queue 1 item 12)")
 
 #: the name prefixes of a state's leaves that are theta-like trees (the
 #: bare theta, an EngineState's theta and its base optimizer's moments)
@@ -126,6 +132,21 @@ class _GroupSum(torch.autograd.Function):
         return (None, *gs)
 
 
+class _AllReduce(torch.autograd.Function):
+    """A rank's partial -> the sum over the model group, on every rank (in
+    f32 for a narrower float, cast back); backward: the same sum of the
+    ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _group_sum(mesh, [x.detach()])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduce.apply(g, ctx.mesh), None
+
+
 class _Replicate(torch.autograd.Function):
     """Replicated values as each rank's loss reads them: the identity;
     backward: :class:`_GroupSum` of the ranks' cotangents."""
@@ -165,6 +186,11 @@ class FSDP:
         self.names = names
         self.specs = specs
         self._leaves: Dict[str, _Leaf] = {}
+        #: Adafactor's statistics of a sharded leaf, by the leaf's name and
+        #: the key under it: the full moment "v" as the leaf; of a 2-D leaf
+        #: the row means "r" (indexed by dim 0) or the column means "c"
+        #: (dim 1), whichever the sharded dim indexes, as a 1-D block
+        self._stats: Dict[str, _Leaf] = {}
         m = mesh.model_size
         for name, spec, x in zip(names, specs, leaves):
             dim = model_dim(spec)
@@ -172,29 +198,53 @@ class FSDP:
                 continue
             full = tuple(x.shape)
             block = full[:dim] + (full[dim] // m,) + full[dim + 1:]
-            self._leaves[name] = _Leaf(spec, dim, full, block)
+            self._leaves[name] = leaf = _Leaf(spec, dim, full, block)
+            if len(full) == 2:
+                key = "rc"[dim]
+                self._stats[f"{name}['{key}']"] = _Leaf(("model",), 0, (full[dim],),
+                                                        (block[dim],))
+            else:
+                self._stats[name + "['v']"] = leaf
 
     @property
     def sharded(self) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
         """Each sharded leaf's name -> (dim, block shape)."""
         return {n: (leaf.dim, leaf.block) for n, leaf in self._leaves.items()}
 
-    def check_optimizer(self, opt) -> None:
-        if getattr(opt, "name", None) == "adafactor":
-            raise NotImplementedError(ADAFACTOR_REFUSED)
-
     def _leaf(self, name: str, shape, whole: bool) -> Optional[_Leaf]:
         """The layout of a state leaf named ``name`` (a theta-like tree's
         leaf: the bare theta, ``.theta``, ``.base_opt_state.mu`` or
-        ``.nu``) if it is sharded and has the whole shape (``whole``) or
-        the block shape."""
+        ``.nu``, or one of Adafactor's statistics under ``.nu``) if it is
+        sharded and has the whole shape (``whole``) or the block shape."""
         i = name.find("[")
         if i < 0 or name[:i] not in _THETA_LIKE:
             return None
         leaf = self._leaves.get(name[i:])
+        if leaf is None and name[:i] == ".base_opt_state.nu":
+            leaf = self._stats.get(name[i:])
         if leaf is None or tuple(shape) != (leaf.full if whole else leaf.block):
             return None
         return leaf
+
+    def sharded_dims(self, tree: Tree) -> List[Optional[int]]:
+        """Per leaf of a theta-like tree of blocks: its sharded dim, or None."""
+        names, leaves = tu.flatten_with_keys(tree)
+        out = []
+        for name, x in zip(names, leaves):
+            leaf = self._leaf(name, x.shape, whole=False)
+            out.append(None if leaf is None else leaf.dim)
+        return out
+
+    def group_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of each rank's ``x`` over the model group, on every rank
+        (:class:`_AllReduce`, differentiable twice)."""
+        return _AllReduce.apply(x, self.mesh)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The data shard's rows of ``x`` (dim 0 this rank's rows, as
+        ``Mesh.local`` splits them): an all-gather over the model group in
+        model-rank order; backward: the reduce-scatter (:class:`_AllGather`)."""
+        return _AllGather.apply(x, self.mesh, 0)
 
     # -- placing and gathering ------------------------------------------------
 
@@ -272,7 +322,8 @@ class FSDP:
 
         def wrap(loss_fn):
             def wrapped(theta, lam, batch):
-                out = loss_fn(self.gather(theta), self._replicate(lam), batch)
+                with moe.rows_split(self):
+                    out = loss_fn(self.gather(theta), self._replicate(lam), batch)
                 if spec.has_aux:
                     return self._group_loss(out[0]), out[1]
                 return self._group_loss(out)

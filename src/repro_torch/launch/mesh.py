@@ -13,7 +13,8 @@ node: joined by NVLink). A mesh holds three groups:
   data axes, as a pure data-parallel mesh has them);
 * the model group: the ranks with this rank's data coordinates, over
   which the parameters are sharded (``launch.fsdp``) and a data shard's
-  rows are split (``Mesh.local``);
+  rows are split (``Mesh.local``; a MoE layer gathers them back where its
+  dispatch groups need the shard's tokens, ``models.moe``);
 * the world: every rank of the mesh.
 
 The JAX package's ``shard_map`` and ``AxisType`` are version shims of JAX
@@ -156,24 +157,34 @@ class Mesh:
         b = n // self.size
         return slice(self.rank * b, (self.rank + 1) * b)
 
-    def _model_rows(self, n: int, total: int) -> slice:
-        """This rank's rows of a data shard of ``n`` rows (of a global
-        batch of ``total``): the contiguous ``n / model extent`` block at
-        the model coordinate."""
+    def _model_block(self, x: torch.Tensor, axis: int, total: int,
+                     microbatch: int) -> torch.Tensor:
+        """This rank's rows along ``axis`` of a data shard ``x`` (of a global
+        batch of ``total`` rows): of each of the ``microbatch`` contiguous
+        microbatches the shard is cut into, the contiguous ``1 / model
+        extent`` block at the model coordinate. The model group's blocks
+        of microbatch i, gathered in model-rank order, are then the
+        shard's microbatch i."""
 
-        m = self.model_size
-        if n % m:
+        m, n = self.model_size, x.shape[axis]
+        if n % (m * microbatch):
+            split = f" in {microbatch} microbatches" if microbatch > 1 else ""
             raise ValueError(f"a batch of {total} rows over {self.size} data ranks gives "
                              f"data shards of {n} rows, which do not split evenly over "
-                             f"{m} model ranks")
-        b = n // m
-        return slice(self.model_rank * b, (self.model_rank + 1) * b)
+                             f"{m} model ranks{split}")
+        b = n // (m * microbatch)
+        lead, rest = tuple(x.shape[:axis]), tuple(x.shape[axis + 1:])
+        x = x.reshape(lead + (microbatch, m, b) + rest).select(axis + 1, self.model_rank)
+        return x.reshape(lead + (microbatch * b,) + rest)
 
-    def local(self, batch: Tree, axis: int) -> Tree:
+    def local(self, batch: Tree, axis: int, microbatch: int = 1) -> Tree:
         """This rank's slice of ``batch`` along ``axis`` (1 for base
         batches (K, B, ...), 0 for a meta batch): its data shard's rows
         (:meth:`rows`), split evenly over the model group, so that each
-        rank takes its block of the world in world-rank order. A
+        rank takes its block of the world in world-rank order; with
+        ``microbatch`` M > 1, its block of each of the shard's M
+        microbatches (the step's ``ScaleConfig.microbatch``), so that a
+        MoE layer's gathered tokens are the shard's microbatch. A
         :class:`LocalBatch` holds this data shard's rows already: only the
         model group's split applies to it."""
 
@@ -184,7 +195,7 @@ class Mesh:
             if data_split:
                 x = x[(slice(None),) * axis + (self.rows(n),)]
             if self.model_size > 1:
-                x = x[(slice(None),) * axis + (self._model_rows(x.shape[axis], n),)]
+                x = self._model_block(x, axis, n, microbatch)
             return x
 
         if isinstance(batch, LocalBatch):

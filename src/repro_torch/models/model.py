@@ -37,9 +37,11 @@ def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     ops, no kernel there either): the lse from a max and a sum over V and
     the target logit from a compare-select sum, reductions that a
     vocab-sharded V axis turns into (token,)-sized all-reduces where a
-    gather would collect the whole logits tensor. The port shards no V
-    axis yet (ROADMAP queue 1 item 3); ``cfg.sharded_ce`` selects the form
-    all the same."""
+    gather would collect the whole logits tensor. The port's model axis is
+    FSDP (``launch.fsdp``): each rank gathers the whole parameters, so its
+    logits keep the whole V axis and no V axis is sharded (that needs
+    tensor parallelism); ``cfg.sharded_ce`` selects the form all the
+    same."""
     if sharded:
         m = torch.amax(logits, dim=-1, keepdim=True)
         lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]

@@ -12,11 +12,19 @@ a leading group axis, each group's arithmetic unchanged.
 
 Tokens are dispatched in groups of ``MOE_GROUP``; a token count above it
 must be a multiple of it (the reference asserts this, the port raises).
+
+Under a live model axis a loss's rows are split over the model group
+(``launch.fsdp``, which enters :func:`rows_split` around each loss), while
+the reference routes its data shard's tokens as one call. The layer then
+computes the reference's function of the whole shard: where this rank's
+rows hold whole dispatch groups it routes them itself and sums the
+load-balance statistics over the group; otherwise it gathers the call's
+tokens over the group, routes them all and keeps its rows of the output.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +36,33 @@ Tree = Any
 
 MOE_GROUP = 1024  # tokens per dispatch group: bounds the one-hot dispatch
 # tensor to (G, E, C) with C ~ k G / E
+
+#: the model groups over which the running loss's rows are split, innermost
+#: last (None: not split); a plain list, not a context variable, since
+#: autograd may recompute a layer on its own threads
+_ROWS: List[Any] = []
+
+
+class rows_split:
+    """Within the block a MoE layer's rows are this rank's of a data shard
+    split over ``group`` (a ``launch.fsdp.FSDP``: ``mesh``, ``gather_rows``,
+    ``group_sum``), or not split (None). Enterable again: remat's
+    recomputation enters one such block at each backward that needs it."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        _ROWS.append(self.group)
+        return self.group
+
+    def __exit__(self, *exc):
+        _ROWS.pop()
+
+
+def row_group():
+    """The innermost :func:`rows_split` group, or None."""
+    return _ROWS[-1] if _ROWS else None
 
 
 def init_moe(cfg, gen, *, dtype=torch.float32, device, lead: Tuple[int, ...] = ()):
@@ -126,29 +161,46 @@ def router_probs(p, tokens: torch.Tensor) -> torch.Tensor:
 def apply_moe(cfg, p: Tree, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D). Returns (out (B, S, D), the GShard load-balance aux
     loss, f32 scalar). A ``torch.profiler`` range of its name holds the
-    call (its forward, and its recomputation under remat)."""
+    call (its forward, and its recomputation under remat). Within
+    :func:`rows_split` ``x`` is this rank's rows of the data shard, and
+    the layer computes the whole shard's function (module docstring)."""
 
     B, S, D = x.shape
     E = cfg.num_experts
-    T = B * S
+    rows = row_group()
+    # this rank's tokens hold whole dispatch groups of the data shard's
+    whole = rows is None or (B * S) % MOE_GROUP == 0
+    tokens_in = x if whole else rows.gather_rows(x)
+    T = tokens_in.shape[0] * S
     n_groups, group = moe_groups(T)
     capacity = moe_capacity(cfg, group)
 
-    tokens = x.reshape(n_groups, group, D)
+    tokens = tokens_in.reshape(n_groups, group, D)
     probs = router_probs(p, tokens)  # (n, G, E)
     expert_idx, _, dispatch, combine = route(cfg, probs, capacity)
     expert_in = torch.einsum("ngec,ngd->necd", dispatch.to(tokens.dtype), tokens)
     expert_out = _expert_ffn(cfg, p["experts"], expert_in)  # (n, E, C, D)
     out = torch.einsum("ngec,necd->ngd", combine.to(tokens.dtype), expert_out)
+    out = out.reshape(T, D)
+    if not whole:  # this rank's rows of the gathered call
+        out = out.reshape(-1, B * S, D)[rows.mesh.model_rank]
 
     if cfg.num_shared_experts:
-        out = out.reshape(T, D) + cm.apply_mlp(cfg, p["shared"], x.reshape(T, D))
+        out = out + cm.apply_mlp(cfg, p["shared"], x.reshape(B * S, D))
 
     # GShard aux loss: E * sum_e f_e * p_e over the whole batch (the
     # reference takes top_k of the same rows again: the same indices)
     probs_flat = probs.reshape(T, E)
     assign = F.one_hot(expert_idx.reshape(T, -1), E).float()
-    me = probs_flat.mean(0)
-    ce = assign.sum(1).mean(0)
+    if whole and rows is not None and rows.mesh.model_size > 1:
+        # the shard's means from the group's sums (the all-reduce's backward
+        # sums the ranks' cotangents, so each rank's probs get the whole
+        # shard's gradient share once)
+        n = T * rows.mesh.model_size
+        me = rows.group_sum(probs_flat.sum(0)) / n
+        ce = rows.group_sum(assign.sum(1).sum(0)) / n
+    else:
+        me = probs_flat.mean(0)
+        ce = assign.sum(1).mean(0)
     aux = E * torch.sum(me * ce) * cfg.router_aux_coef
     return out.reshape(B, S, D), aux.float()

@@ -25,6 +25,7 @@ backward pass, as ``jax.checkpoint`` on the JAX scan body does.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -246,9 +247,16 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Tree:
 
 def _run_layer(cfg, fn, *args):
     """One layer of the training forward, under ``torch.utils.checkpoint``
-    with ``cfg.remat`` while gradients are taken."""
+    with ``cfg.remat`` while gradients are taken. The recomputation, which
+    the backward runs outside the loss, sees the forward's
+    ``moe.rows_split`` group."""
     if cfg.remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        rows = moe_mod.row_group()
+        if rows is None:
+            return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), moe_mod.rows_split(rows)))
     return fn(*args)
 
 

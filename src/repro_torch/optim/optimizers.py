@@ -365,20 +365,34 @@ def lion(
 # ---------------------------------------------------------------------------
 
 
-def _adafactor_stats(g, nu_leaf, t, b2, eps1):
+def _mean(x, dim: int, split: bool):
+    """``torch.mean(x, dim)``; where ``dim`` is split over the model group
+    (``x`` this rank's block of it), the group's sum over the whole extent
+    (``core.sync``)."""
+    if not split:
+        return torch.mean(x, dim=dim)
+    from repro_torch.core import sync  # core imports this package
+
+    return sync.group_sum(torch.sum(x, dim=dim)) / (x.shape[dim] * sync.model_extent())
+
+
+def _adafactor_stats(g, nu_leaf, t, b2, eps1, sharded_dim=None):
     """Advance one leaf's (factored) second-moment statistics and return
     (new nu leaf, bias-corrected vhat). 2-D leaves keep row and column
-    means (O(r + c) state); every other shape keeps the full moment."""
+    means (O(r + c) state); every other shape keeps the full moment.
+    ``sharded_dim``: the dim of a 2-D leaf split over a live model axis,
+    whose means then sum over the model group."""
 
     g2 = g * g + eps1
     # bias correction in at least f32 (see adam): 1 - b2^t rounds to 0 in bf16
     bc2 = (1.0 - b2 ** t.to(torch.promote_types(g.dtype, torch.float32))).to(g.dtype)
     if "r" in nu_leaf:
-        r1 = b2 * nu_leaf["r"] + (1.0 - b2) * torch.mean(g2, dim=1)
-        c1 = b2 * nu_leaf["c"] + (1.0 - b2) * torch.mean(g2, dim=0)
+        r1 = b2 * nu_leaf["r"] + (1.0 - b2) * _mean(g2, 1, sharded_dim == 1)
+        c1 = b2 * nu_leaf["c"] + (1.0 - b2) * _mean(g2, 0, sharded_dim == 0)
         rhat = r1 / bc2
         chat = c1 / bc2
-        vhat = rhat[:, None] * chat[None, :] / torch.mean(rhat)
+        norm = torch.mean(rhat) if sharded_dim != 0 else _mean(rhat, 0, True)
+        vhat = rhat[:, None] * chat[None, :] / norm
         return {"r": r1, "c": c1}, vhat
     v1 = b2 * nu_leaf["v"] + (1.0 - b2) * g2
     return {"v": v1}, v1 / bc2
@@ -417,7 +431,9 @@ def adafactor(
 
     exact as b2 -> 1, and both it and the fused ``adapt_product`` send the
     elementwise tail through the ``adafactor_adapt`` kernel after the
-    rank-1 ``vhat`` is rebuilt in torch."""
+    rank-1 ``vhat`` is rebuilt in torch. Under a live model axis
+    (``launch.fsdp``) each mean over a sharded dim is the model group's,
+    in ``update`` and in both adaptations alike."""
 
     lr_fn = schedules.resolve(lr)
 
@@ -431,8 +447,13 @@ def adafactor(
         return OptState(count=_count(params), nu=tu.tree_map(one, params))
 
     def _stats(grads, state):
+        from repro_torch.core import sync  # core imports this package
+
+        dims = iter(sync.sharded_dims(grads))
+
         def one(g, nu_leaf):
-            return _adafactor_stats(g, nu_leaf, (state.count + 1).to(g.dtype), b2, eps1)
+            return _adafactor_stats(g, nu_leaf, (state.count + 1).to(g.dtype), b2, eps1,
+                                    next(dims))
 
         return _adafactor_map(one, grads, state.nu)
 
@@ -463,13 +484,16 @@ def adafactor(
         del params
         step_lr = lr_fn(state.count)
         paths, pairs = _stats(grads, state)
-        outs, total = [], None
+        outs, sumsqs = [], []
         for (_, vhat), gm in zip(pairs, tu.tree_leaves(g_meta)):
             out, ss = adafactor_adapt_mod.adafactor_adapt(vhat.reshape(-1), gm.reshape(-1),
                                                           lr=step_lr, eps=eps)
             outs.append(out.reshape(vhat.shape))
-            total = ss if total is None else total + ss
-        return tu.tree_unflatten(paths, outs), total
+            sumsqs.append(ss)
+        from repro_torch.core import sync  # core imports this package
+
+        # under a live model axis the blocks' sums add over the model group
+        return tu.tree_unflatten(paths, outs), sync.leaf_sum(grads, sumsqs)
 
     return Optimizer("adafactor", init, update, adaptation, adapt_product)
 

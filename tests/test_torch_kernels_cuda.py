@@ -218,36 +218,47 @@ def test_adam_adapt_kernel_matches_plain(dev, n, t):
     torch.testing.assert_close(out1, ref[1:], rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,sliced", [((37, 5000), False), ((3, 40, 8192), True),
-                                          ((2, 4096), False), ((5, 4097), False),
-                                          ((2, 448, 51865), True)])
-def test_weighted_ce_kernels_match_plain(dev, shape, sliced, dtype):
+#: V at every phase a row can take in a 16-byte line: 4097-4099 (f32 rows
+#: 1-3 elements apart from the previous row's phase), 8193-8199 (bf16 and
+#: f16: 1-7), and V below one 16-byte vector
+CE_ALIGN_V = (1, 3, 7, 4097, 4098, 4099, 8193, 8194, 8195, 8196, 8197, 8198, 8199)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,sliced,offset", [
+    ((37, 5000), False, 0), ((3, 40, 8192), True, 0), ((2, 4096), False, 0),
+    ((5, 4097), False, 0), ((2, 448, 51865), True, 0)]
+    + [((2, 9, v), True, off) for v in CE_ALIGN_V for off in (0, 3)])
+def test_weighted_ce_kernels_match_plain(dev, shape, sliced, offset, dtype):
     """Forward (ce, lse) and backward (dlogits) through autograd, the
     backward kernel's gradient in the logits' dtype. ``sliced`` feeds the
-    LM loss's logits[:, :-1] view; V 4097 leaves rows unaligned and a
-    ragged end. f32 within 1e-5 (1 + |ref|) forward and 1e-6 + 1e-5 |ref|
-    backward; bf16 gradients within half an ulp of the plain version in
-    f32 (plus the f32 tolerance). whisper-small's LM loss (V 51,865, odd:
-    every row but the first off a 16-byte boundary) takes the kernels'
-    scalar loads."""
+    LM loss's logits[:, :-1] view; ``offset`` starts the logits that many
+    elements into their storage, so the logits rows and the dlogits rows
+    meet at every phase difference in a 16-byte line (CE_ALIGN_V). f32
+    within 1e-5 (1 + |ref|) forward and 1e-6 + 1e-5 |ref| backward; bf16
+    and f16 gradients within half an ulp of the plain version in f32 (plus
+    the f32 tolerance). whisper-small's LM loss (V 51,865, odd: every row
+    but the first off a 16-byte boundary) is among them."""
     from repro_torch.kernels import weighted_ce
 
-    rng = np.random.default_rng(sum(shape))
-    x = (_randn(rng, shape, torch.float32, dev) * 3).to(dtype)
+    rng = np.random.default_rng(sum(shape) + offset)
+    n = int(np.prod(shape))
+    buf = (_randn(rng, (n + offset,), torch.float32, dev) * 3).to(dtype)
     t = torch.from_numpy(rng.integers(0, shape[-1], shape[:-1]).astype(np.int64)).to(dev)
-    if sliced:
-        x_in, t_in = x[:, :-1], t[:, 1:]
-    else:
-        x_in, t_in = x, t
+    t_in = t[:, 1:] if sliced else t
     g = _randn(rng, t_in.shape, torch.float32, dev)
 
+    def view(b):
+        x = b[offset:].view(shape)
+        return x[:, :-1] if sliced else x
+
+    x_in = view(buf)
+
     def run(backend):
-        leaf = x.clone().requires_grad_(True)
-        xi = leaf[:, :-1] if sliced else leaf
-        ce = weighted_ce.cross_entropy(xi, t_in, backend=backend)
+        leaf = buf.clone().requires_grad_(True)
+        ce = weighted_ce.cross_entropy(view(leaf), t_in, backend=backend)
         (ce * g).sum().backward()
-        return ce.detach(), leaf.grad
+        return ce.detach(), leaf.grad[offset:].view(shape)
 
     dispatch.reset_launches()
     ce, grad = run(None)

@@ -7,9 +7,9 @@ package in a subprocess on a forced 4-device host mesh, its theta placed
 by ``shardings_like(mesh, tree_param_specs(theta, mesh, cfg))`` (the
 partial-manual ``shard_map`` of ``make_manual_step`` lowers under jax
 0.9.0). Both start from the port's init carried as numpy and
-the same numpy batches; base Adam takes eps 1e-3 on warm rows (the base
-batches permute the meta batch's sequences), where two implementations of
-SAMA agree beyond rounding (ROADMAP queue 3).
+the same numpy batches; base Adam and Adafactor take eps 1e-3 on warm
+rows (the base batches permute the meta batch's sequences), where two
+implementations of SAMA agree beyond rounding (ROADMAP queue 3).
 
 The cases, each with its metrics, lam and each rank's blocks of theta,
 the base optimizer's moments and SAMA's ``v`` (a probe method that hands
@@ -28,13 +28,22 @@ oracle at the same:
 * gemma3-1b SMOKE, (2, 2): manual and pjit (GQA, the vocabulary-sharded
   embedding, the LM loss's CE);
 * qwen2-moe SMOKE, (1, 2), each pair of ranks a mesh of its own: manual,
-  the expert stack sharded on E. A model group splits its data shard's
-  rows, so each rank's MoE layer routes its own tokens as one dispatch
-  group, capacity and load-balance loss included: the oracle is the
-  Engine step with the data shard cut into 2 microbatches, in both
-  packages (the same function JAX's step computes with M = 2);
+  the expert stack sharded on E, against JAX's step on a (1, 2) mesh (the
+  pjit form, GSPMD partitioning it over the model axis: the manual
+  step's psum over a data axis of extent 1 does not lower) and the
+  one-process Engine step. A model group splits its data
+  shard's rows, and each MoE layer gathers its tokens back over the group
+  to route the shard's dispatch group (``models.moe``); the LM loss with
+  its load-balance aux, and the aux alone, with their gradients, against
+  JAX's on the whole shard, once through that gather and once with
+  ``MOE_GROUP`` cut so that each rank's rows hold whole dispatch groups
+  (the aux's statistics summed over the group);
 * bert mini with a Lion base, (1, 4) (the attention projections
-  replicated: 2 heads do not split 4 ways).
+  replicated: 2 heads do not split 4 ways);
+* bert mini with an Adafactor base, manual at (1, 2) and (2, 2) (JAX's
+  pjit and manual steps on those meshes): the
+  factored statistics of the vocabulary-sharded embedding summed over the
+  model group, the whole state (gathered) against JAX's.
 
 Also: eps against the oracle so that a replicated leaf counted m times
 in ``v``'s norm fails (the counted-twice eps lies far outside the
@@ -42,8 +51,8 @@ tolerance); the census per kind and group against a formula (the data
 group's all-reduces exactly K + 1 under manual, at model extents 2 and 4);
 the model-group replicas of replicated leaves bitwise equal; a checkpoint
 saved on (2, 2) bitwise the one-rank save, restored by JAX and by one port
-rank and onto the mesh; Adafactor refused under a live model axis; a row
-count that does not split over the model group refused.
+rank and onto the mesh; a row count that does not split over the model
+group refused.
 """
 
 import dataclasses
@@ -66,7 +75,6 @@ from repro_torch.launch import fsdp as F  # noqa: E402
 from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.launch import sharding as sh  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
-from repro_torch.scale import ScaleConfig  # noqa: E402
 
 from test_torch_distributed import CLOSE, CLOSE_LOSS  # noqa: E402
 from test_torch_sama import _mini_bert  # noqa: E402
@@ -85,6 +93,10 @@ SEPARATION = 10
 #: the JAX cases run in this many subprocesses at once (each compiles its
 #: steps, ~5-10 s apiece on the CPU)
 JAX_PARTS = 3
+#: MoE dispatch groups of the loss checks: the reference's (qwen's 64-token
+#: shard is one group: each rank gathers it) and one that each rank's 32
+#: tokens hold whole
+MOE_GROUPS = (1024, 16)
 
 
 def cfg_of(name, pkg):
@@ -109,6 +121,15 @@ def problem(name, seed=0):
         meta["y"] = rng.integers(0, 4, mb).astype(np.int32)
     lam = convert.params_to_numpy(problems.init_data_optimization_lam(seed + 1, device="cpu"))
     return theta, lam, base, meta
+
+
+def base_opt(optim_pkg, opt):
+    """The base optimizer of a case, from either package's ``optim``."""
+    if opt == "lion":
+        return optim_pkg.lion(LR)
+    if opt == "adafactor":
+        return optim_pkg.adafactor(LR, eps=ADAM_EPS)
+    return optim_pkg.adam(LR, eps=ADAM_EPS)
 
 
 def _t(tr):
@@ -137,7 +158,6 @@ from repro.launch import distributed as jd
 from repro.launch.mesh import AxisType, make_mesh
 from repro.launch.sharding import shardings_like, tree_param_specs
 from repro.models import Model as JaxModel
-from repro.scale import ScaleConfig
 import test_torch_model_axis as T
 
 
@@ -157,7 +177,9 @@ class VMetric(SAMAMethod):
         return {"eps": terms["eps"], "v": terms["v"]}
 
 
-mesh22 = make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+MESHES = {"22": make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2),
+          "12": make_mesh((1, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2,
+                          devices=jax.devices()[:2])}
 out = {}
 cast = lambda t: jax.tree_util.tree_map(jnp.asarray, t)
 
@@ -171,22 +193,26 @@ def put(prefix, state, metrics):
         out[prefix + "|" + jax.tree_util.keystr(path)] = np.asarray(x)
 
 
-def run(name, tag, kind, method, opt, micro):
+def run(name, tag, kind, method, opt, mesh):
     theta, lam, base, meta = T.problem(name)
     cfg = T.cfg_of(name, jconfigs)
     model = JaxModel(cfg)
     per_ex = model.classifier_per_example if name == "bert" else model.per_example
     spec = jp.make_data_optimization_spec(per_ex, reweight=True)
-    bo = optim.lion(T.LR) if opt == "lion" else optim.adam(T.LR, eps=T.ADAM_EPS)
+    bo = T.base_opt(optim, opt)
     mo = optim.adam(T.LR)
-    ecfg = EngineConfig(method=method, unroll_steps=T.K, scale=ScaleConfig(microbatch=micro))
-    if kind.startswith("manual"):
-        th = jax.device_put(cast(theta), shardings_like(mesh22, tree_param_specs(
-            cast(theta), mesh22, cfg)))
+    ecfg = EngineConfig(method=method, unroll_steps=T.K)
+    if mesh is not None:
+        mesh = MESHES[mesh]
+        th = jax.device_put(cast(theta), shardings_like(mesh, tree_param_specs(
+            cast(theta), mesh, cfg)))
         st = init_state(th, cast(lam), bo, mo)
-        axes = ("data", "model") if kind == "manual_all" else None
-        fn = jax.jit(jd.make_manual_step(spec, bo, mo, ecfg, mesh22, axes))
-        with mesh22:
+        if kind == "pjit":
+            fn = jax.jit(jd.make_pjit_step(spec, bo, mo, ecfg))
+        else:
+            axes = ("data", "model") if kind == "manual_all" else None
+            fn = jax.jit(jd.make_manual_step(spec, bo, mo, ecfg, mesh, axes))
+        with mesh:
             s, m = fn(st, cast(base), cast(meta))
     else:
         st = init_state(cast(theta), cast(lam), bo, mo)
@@ -194,22 +220,52 @@ def run(name, tag, kind, method, opt, micro):
     put(f"{name}/{tag}", s, m)
 
 
-# (name, tag, kind, method, base optimizer, microbatches); one of
-# T.JAX_PARTS subprocesses runs every T.JAX_PARTS-th case
-CASES = [("bert", "manual", "manual", "sama", "adam", 1),
-         ("bert", "manual_v", "manual", VAsTheta(), "adam", 1),
-         ("bert", "manual_all", "manual_all", "sama", "adam", 1),
-         ("bert", "pjit", "engine", VMetric(), "adam", 1),
-         ("bert", "t1t2", "engine", "t1t2", "adam", 1),
-         ("bert", "neumann", "engine", "neumann", "adam", 1),
-         ("bert", "lion", "engine", VMetric(), "lion", 1),
-         ("gemma", "manual", "manual", "sama", "adam", 1),
-         ("gemma", "manual_v", "manual", VAsTheta(), "adam", 1),
-         ("gemma", "pjit", "engine", VMetric(), "adam", 1),
-         ("qwen", "manual", "engine", VMetric(), "adam", 2)]
+def moe_losses():
+    # the LM loss and the aux alone on qwen's meta batch, values and
+    # gradients, at each of T.MOE_GROUPS
+    from repro.models import moe as jmoe
+
+    theta, _, _, meta = T.problem("qwen")
+    model = JaxModel(T.cfg_of("qwen", jconfigs))
+    fns = {"lm": lambda th: model.lm_loss(th, cast(meta)),
+           "aux": lambda th: model.forward(th, cast(meta))[1]}
+    try:
+        for group in T.MOE_GROUPS:
+            jmoe.MOE_GROUP = group
+            for what, fn in fns.items():
+                v, g = jax.value_and_grad(fn)(cast(theta))
+                out[f"moe{group}/{what}|value"] = np.asarray(v)
+                for path, x in jax.tree_util.tree_flatten_with_path(g)[0]:
+                    out[f"moe{group}/{what}|" + jax.tree_util.keystr(path)] = np.asarray(x)
+    finally:
+        jmoe.MOE_GROUP = 1024
+
+
+# (name, tag, kind, method, base optimizer, mesh); one of T.JAX_PARTS
+# subprocesses runs every T.JAX_PARTS-th case. On the (1, 2) mesh the
+# manual step's psum over a data axis of extent 1 does not lower (XLA's
+# SPMD partitioner, jax 0.9.0): there JAX's step is the pjit step, GSPMD
+# partitioning it over the model axis, which is the manual step's function
+# at a data extent of 1
+CASES = [("bert", "manual", "manual", "sama", "adam", "22"),
+         ("bert", "manual_v", "manual", VAsTheta(), "adam", "22"),
+         ("bert", "manual_all", "manual_all", "sama", "adam", "22"),
+         ("bert", "pjit", "engine", VMetric(), "adam", None),
+         ("bert", "t1t2", "engine", "t1t2", "adam", None),
+         ("bert", "neumann", "engine", "neumann", "adam", None),
+         ("bert", "lion", "engine", VMetric(), "lion", None),
+         ("bert", "adafactor", "manual", "sama", "adafactor", "22"),
+         ("bert", "adafactor12", "pjit", "sama", "adafactor", "12"),
+         ("gemma", "manual", "manual", "sama", "adam", "22"),
+         ("gemma", "manual_v", "manual", VAsTheta(), "adam", "22"),
+         ("gemma", "pjit", "engine", VMetric(), "adam", None),
+         ("qwen", "manual", "pjit", "sama", "adam", "12"),
+         ("qwen", "manual_v", "pjit", VAsTheta(), "adam", "12")]
 part = int(sys.argv[3])
 for case in CASES[part::T.JAX_PARTS]:
     run(*case)
+if part == T.JAX_PARTS - 1:
+    moe_losses()
 np.savez(sys.argv[1], **out)
 """
 
@@ -245,27 +301,22 @@ def _spec(name):
 
 
 def _opts(opt="adam"):
-    bo = optim.lion(LR) if opt == "lion" else optim.adam(LR, eps=ADAM_EPS)
-    return bo, optim.adam(LR)
+    return base_opt(optim, opt), optim.adam(LR)
 
 
 def _record(state, metrics, census=None):
     """A step's outcome as numpy: the state's trees (blocks on a sharded
     mesh), the metrics (``v`` among them where the method reports it)."""
-    out = {"theta": _np(state.theta), "mu": _np(state.base_opt_state.mu),
-           "nu": _np(state.base_opt_state.nu), "lam": _np(state.lam),
+    out = {"theta": _np(state.theta), "nu": _np(state.base_opt_state.nu),
+           "lam": _np(state.lam),
            "metrics": {k: (_np(v) if isinstance(v, dict) else float(v))
                        for k, v in metrics.items()}}
+    if state.base_opt_state.mu is not None:
+        out["mu"] = _np(state.base_opt_state.mu)
     if census is not None:
         out["census"] = {g: dict(v) for g, v in census.by_group.items()}
         out["census_bytes"] = {g: dict(v) for g, v in census.bytes_by_group.items()}
     return out
-
-
-def _counted(step, *args):
-    with D.CollectiveCounter() as c:
-        s, m = step(*args)
-    return _record(s, m, c)
 
 
 def _ranks(rank, out_dir):
@@ -283,10 +334,10 @@ def _ranks(rank, out_dir):
         theta, lam, base, meta = problem(name)
         cfg = cfg_of(name, configs)
         spec = _spec(name)
-        for tag, kind, method, opt, micro in cases:
+        for tag, kind, method, opt in cases:
             bo, mo = _opts(opt)
-            ecfg = EngineConfig(method=method, unroll_steps=K,
-                                scale=ScaleConfig(microbatch=micro))
+            ecfg = EngineConfig(method=method, unroll_steps=K)
+            fs = None
             if kind == "manual_all":
                 st = init_state(_t(theta), _t(lam), bo, mo)
                 step = D.make_manual_step(spec, bo, mo, ecfg, mesh, ("data", "model"))
@@ -296,47 +347,70 @@ def _ranks(rank, out_dir):
                 st = init_state(_t(theta), _t(lam), bo, mo, sharding=fs)
                 mk = D.make_manual_step if kind == "manual" else D.make_pjit_step
                 step = mk(spec, bo, mo, ecfg, mesh, sharding=fs)
-            res[f"{name}/{tag}"] = _counted(step, st, _t(base), _t(meta))
+            with D.CollectiveCounter() as c:
+                new, metrics = step(st, _t(base), _t(meta))
+            res[f"{name}/{tag}"] = _record(new, metrics, c)
+            if opt == "adafactor":  # the whole state, its statistics' blocks gathered
+                res[f"{name}/{tag}/whole"] = _record(fs.unshard(new), metrics)
             if rank:
                 continue
             # the one-process oracles (rank 0 only; no collective)
             st1 = init_state(_t(theta), _t(lam), bo, mo)
-            if kind in ("manual", "manual_all") and micro == 1:
+            if kind in ("manual", "manual_all"):
                 n = data_extent * (mesh.model_size if kind == "manual_all" else 1)
                 s, m = D.emulate_manual_step(spec, bo, mo, ecfg, n, st1, _t(base), _t(meta))
             else:
                 s, m = make_meta_step(spec, bo, mo, ecfg)(st1, _t(base), _t(meta))
             res[f"{name}/{tag}/oracle"] = _record(s, m)
 
+    def moe_losses(mesh):
+        """qwen's LM loss and its aux alone under the model group, values
+        and gradients of theta's blocks, at each of MOE_GROUPS."""
+        from repro_torch.core.bilevel import BilevelSpec
+        from repro_torch.models import moe
+
+        theta, lam, _, meta = problem("qwen")
+        cfg = cfg_of("qwen", configs)
+        model = Model(cfg, device="cpu")
+        fs = F.FSDP(_t(theta), mesh, cfg)
+        rows = mesh.local(_t(meta), 0)
+        fns = {"lm": model.lm_loss, "aux": lambda th, b: model.forward(th, b)[1]}
+        try:
+            for group in MOE_GROUPS:
+                moe.MOE_GROUP = group
+                for what, fn in fns.items():
+                    loss_fn = fs.apply_to_spec(BilevelSpec(
+                        base_loss=lambda th, lm, b, fn=fn: fn(th, b),
+                        meta_loss=lambda th, lm, b, fn=fn: fn(th, b))).base_loss
+                    blocks = tree.tree_map(lambda x: x.requires_grad_(True),
+                                           fs.shard(_t(theta)))
+                    with D.CollectiveCounter() as c:
+                        value = loss_fn(blocks, _t(lam), rows)
+                        grads = torch.autograd.grad(value, tree.tree_leaves(blocks))
+                    res[f"moe{group}/{what}"] = {
+                        "value": float(value), "census": {g: dict(v) for g, v in
+                                                          c.by_group.items()},
+                        "grads": _np(tree.unflatten_like(blocks, list(grads)))}
+        finally:
+            moe.MOE_GROUP = 1024
+
     sama = EngineConfig().method
-    scenario("bert", mesh22, [("manual", "manual", sama, "adam", 1),
-                              ("manual_v", "manual", VAsTheta(), "adam", 1),
-                              ("manual_all", "manual_all", sama, "adam", 1),
-                              ("pjit", "pjit", VMetric(), "adam", 1),
-                              ("t1t2", "pjit", "t1t2", "adam", 1),
-                              ("neumann", "pjit", "neumann", "adam", 1)], 2)
-    scenario("bert", mesh14, [("lion", "manual", VAsTheta(), "lion", 1),
-                              ("lion_state", "manual", sama, "lion", 1)], 1)
-    scenario("gemma", mesh22, [("manual", "manual", sama, "adam", 1),
-                               ("manual_v", "manual", VAsTheta(), "adam", 1),
-                               ("pjit", "pjit", VMetric(), "adam", 1)], 2)
-    # qwen's oracle is the Engine step at M 2 (each model rank's rows one
-    # dispatch group); the (1, 2) step itself takes M 1
-    theta, lam, base, meta = problem("qwen")
-    cfg, spec = cfg_of("qwen", configs), _spec("qwen")
-    bo, mo = _opts()
-    fs = F.FSDP(_t(theta), pair, cfg)
-    for tag, method in (("manual", sama), ("manual_v", VAsTheta())):
-        res[f"qwen/{tag}/sharded"] = fs.sharded
-        step = D.make_manual_step(spec, bo, mo, EngineConfig(method=method, unroll_steps=K),
-                                  pair, sharding=fs)
-        res[f"qwen/{tag}"] = _counted(step, init_state(_t(theta), _t(lam), bo, mo, sharding=fs),
-                                      _t(base), _t(meta))
-    if rank == 0:
-        s, m = make_meta_step(spec, bo, mo, EngineConfig(method=VMetric(), unroll_steps=K,
-                                                         scale=ScaleConfig(microbatch=2)))(
-            init_state(_t(theta), _t(lam), bo, mo), _t(base), _t(meta))
-        res["qwen/manual/oracle"] = _record(s, m)
+    scenario("bert", mesh22, [("manual", "manual", sama, "adam"),
+                              ("manual_v", "manual", VAsTheta(), "adam"),
+                              ("manual_all", "manual_all", sama, "adam"),
+                              ("pjit", "pjit", VMetric(), "adam"),
+                              ("t1t2", "pjit", "t1t2", "adam"),
+                              ("neumann", "pjit", "neumann", "adam"),
+                              ("adafactor", "manual", sama, "adafactor")], 2)
+    scenario("bert", pair, [("adafactor12", "manual", sama, "adafactor")], 1)
+    scenario("bert", mesh14, [("lion", "manual", VAsTheta(), "lion"),
+                              ("lion_state", "manual", sama, "lion")], 1)
+    scenario("gemma", mesh22, [("manual", "manual", sama, "adam"),
+                               ("manual_v", "manual", VAsTheta(), "adam"),
+                               ("pjit", "pjit", VMetric(), "adam")], 2)
+    scenario("qwen", pair, [("manual", "manual", sama, "adam"),
+                            ("manual_v", "manual", VAsTheta(), "adam")], 1)
+    moe_losses(pair)
 
     # checkpoints: a (2, 2) learner saves at step 0 and 1; rank 0 saves the
     # one-rank learner's step 0; the saved step 1 loads back onto the mesh
@@ -366,13 +440,6 @@ def _ranks(rank, out_dir):
     fs = F.FSDP(_t(theta), mesh22, cfg)
     refusals = {}
     for what, call in (
-            ("init_state", lambda: init_state(_t(theta), _t(lam), optim.adafactor(LR),
-                                              optim.adam(LR), sharding=fs)),
-            ("make_manual_step", lambda: D.make_manual_step(spec, optim.adafactor(LR),
-                                                            optim.adam(LR), EngineConfig(),
-                                                            mesh22, sharding=fs)),
-            ("learner", lambda: api.MetaLearner(spec, base_opt="adafactor", mesh=mesh22,
-                                                model_cfg=cfg).init(_t(theta), _t(lam))),
             ("no_sharding", lambda: D.make_pjit_step(spec, *_opts(), EngineConfig(), mesh22)),
             ("rows", lambda: D.make_manual_step(spec, *_opts(), EngineConfig(unroll_steps=K),
                                                 mesh22, sharding=fs)(
@@ -518,7 +585,7 @@ def test_v_blocks_match_jax(runs, name, tag):
             got = res[f"{name}/{case}"]["metrics"]["v"]
         else:
             got = res[f"{name}/{case}"]["theta"]
-        jtag = {"manual": "manual_v"}.get(tag, tag) if name != "qwen" else "manual"
+        jtag = {"manual": "manual_v"}.get(tag, tag)
         field = "theta" if jtag == "manual_v" else "metrics/v"
         want = _jax(jx, f"{name}/{jtag}", field)
         _hold_tree(got, want, sharded, coords, f"{name}/{tag} v")
@@ -566,22 +633,30 @@ def test_eps_would_fail_with_a_replicated_leaf_counted_m_times(runs):
 # ---------------------------------------------------------------------------
 
 
-def _formula(sharded, full_shapes, n_leaves, method, schedule, lam_leaves):
+def _formula(sharded, full_shapes, n_leaves, method, schedule, lam_leaves, moe_tokens=None):
     """The collectives of one meta step at M 1 with a fused Adam product:
     per loss call (K base, the meta pass, two central differences for
     SAMA) one all-gather per sharded leaf and one group-loss all-reduce;
     per theta backward (K base, the meta pass) one reduce-scatter per
     sharded leaf and one bucket of the replicated leaves; the two central
     differences' lam buckets; one all-reduce of v's sum of squares. T1-T2
-    and Neumann are not counted here."""
+    and Neumann are not counted here. ``moe_tokens``: (MoE layers, f32
+    bytes of a data shard's activations), whose tokens each MoE layer
+    gathers in every loss call and again where remat recomputes it for a
+    theta backward, which reduce-scatters them."""
     n_sh = len(sharded)
     n_rep = n_leaves - n_sh
     calls, theta_bwd = K + 3, K + 1
     model = {"all-gather": calls * n_sh, "reduce-scatter": theta_bwd * n_sh,
              "all-reduce": calls + theta_bwd * (n_rep > 0) + 2 * (lam_leaves > 0) + 1}
     data = {"all-reduce": K + 1 if schedule == "manual" else K + 4}
-    gathered = sum(int(np.prod(full_shapes[n])) for n in sharded) * 4
-    return model, data, calls * gathered
+    gathered = calls * sum(int(np.prod(full_shapes[n])) for n in sharded) * 4
+    if moe_tokens is not None:
+        layers, nbytes = moe_tokens
+        model["all-gather"] += (calls + theta_bwd) * layers
+        model["reduce-scatter"] += theta_bwd * layers
+        gathered += (calls + theta_bwd) * layers * nbytes
+    return model, data, gathered
 
 
 @pytest.mark.parametrize("name,tag", [("bert", "manual"), ("bert", "pjit"), ("gemma", "manual"),
@@ -592,10 +667,16 @@ def test_census_per_kind_and_group(runs, name, tag):
     theta, lam, _, _ = problem(name)
     full = {n: x.shape for n, x in _named(theta).items()}
     n_lam = len(tree.tree_leaves(lam))
+    moe_tokens = None
+    if name == "qwen":
+        cfg = cfg_of(name, configs)
+        b, _, s = SIZES[name]
+        moe_tokens = (cfg.num_layers, b * s * cfg.d_model * 4)
     for res in ranks:
         got = res[f"{name}/{tag}"]
         model, data, gathered = _formula(res[f"{name}/{tag}/sharded"], full, len(full), "sama",
-                                         "pjit" if tag == "pjit" else "manual", n_lam)
+                                         "pjit" if tag == "pjit" else "manual", n_lam,
+                                         moe_tokens)
         assert got["census"]["model"] == model, (name, tag)
         assert got["census"]["data"] == data, (name, tag)
         assert got["census_bytes"]["model"]["all-gather"] == gathered
@@ -698,12 +779,56 @@ def test_checkpoint_of_a_sharded_state_is_the_one_rank_save(runs, tmp_path):
         np.testing.assert_array_equal(again[k], saved[k])
 
 
-def test_adafactor_is_refused_under_a_live_model_axis(runs):
-    for res in runs[0]:
-        for what in ("init_state", "make_manual_step", "learner"):
-            msg = res["refusals"][what]
-            assert msg and msg.startswith("NotImplementedError")
-            assert "ROADMAP queue 1 item 12" in msg and "adafactor" in msg
+@pytest.mark.parametrize("tag,mesh", [("adafactor12", "12"), ("adafactor", "22")])
+def test_adafactor_base_under_a_live_model_axis_matches_jax(runs, tag, mesh):
+    """An Adafactor base on the manual step at (1, 2) and (2, 2): metrics,
+    lam, theta and the factored statistics, whole (the blocks gathered),
+    against JAX's partial-manual step and the one-process oracle; the
+    embedding's column statistic (its mean over the sharded vocabulary)
+    is the group's, its row statistic stored as each rank's block."""
+    ranks, jx, _ = runs
+    prefix = f"bert/{tag}"
+    oracle = ranks[0][prefix + "/oracle"]
+    for res in ranks:
+        if mesh == "12" and res["rank"] > 1:  # each pair is a mesh: ranks 2-3 repeat 0-1
+            continue
+        sharded = res[prefix + "/sharded"]
+        assert sharded["['embed']"][0] == 0
+        blocks = _named(res[prefix]["nu"])
+        full = _named(res[prefix + "/whole"]["nu"])
+        assert blocks["['embed']['r']"].shape[0] * 2 == full["['embed']['r']"].shape[0]
+        assert blocks["['embed']['c']"].shape == full["['embed']['c']"].shape
+        got = res[prefix + "/whole"]
+        _hold_metrics(res[prefix]["metrics"], _jax_metrics(jx, prefix), f"{prefix} vs jax")
+        _hold_metrics(res[prefix]["metrics"], oracle["metrics"], f"{prefix} vs oracle")
+        for field in ("theta", "nu", "lam"):
+            _hold_tree(got[field], _jax(jx, prefix, field), {}, None, f"{prefix} {field} vs jax")
+            _hold_tree(got[field], _named(oracle[field]), {}, None,
+                       f"{prefix} {field} vs oracle")
+
+
+@pytest.mark.parametrize("group", MOE_GROUPS)
+@pytest.mark.parametrize("what", ["lm", "aux"])
+def test_moe_loss_and_aux_under_the_model_group_match_jax(runs, what, group):
+    """qwen's LM loss (with its load-balance aux) and the aux alone, on
+    each (1, 2) rank's rows, against JAX's on the whole shard: the value
+    and the gradient of each rank's blocks. At MOE_GROUP 1024 each layer
+    gathers the shard's tokens (its one dispatch group); at 16 each
+    rank's 32 tokens hold whole groups and only the aux's statistics are
+    summed over the group, so no token is gathered."""
+    ranks, jx, _ = runs
+    head = f"moe{group}/{what}|"
+    want = {k[len(head):]: v for k, v in jx.items() if k.startswith(head + "[")}
+    for res in ranks:
+        got = res[f"moe{group}/{what}"]
+        np.testing.assert_allclose(got["value"], float(jx[head + "value"]), **CLOSE_LOSS)
+        _hold_tree(got["grads"], want, res["qwen/manual/sharded"], res["coords"]["12"],
+                   f"{head} grads")
+        gathers = got["census"]["model"]["all-gather"]
+        n_sh = len(res["qwen/manual/sharded"])
+        layers = cfg_of("qwen", configs).num_layers
+        # the forward and remat's recomputation gather the tokens of each layer
+        assert gathers == n_sh + (2 * layers if group == 1024 else 0), gathers
 
 
 def test_a_model_axis_needs_the_sharding_and_rows_that_split(runs):
@@ -733,3 +858,58 @@ def test_fsdp_refuses_a_mesh_without_a_model_axis():
     with pytest.raises(ValueError, match="model extent above 1"):
         F.FSDP({"w": torch.ones(2)}, M.make_host_mesh(device="cpu"))
     assert sh.param_spec("['embed']", (8, 4), M.make_host_mesh(device="cpu")) == ("model", None)
+
+
+def test_local_rows_take_a_block_of_each_microbatch():
+    """A model group's rows at M microbatches: rank r takes its block of
+    each of the data shard's M contiguous microbatches, so the group's
+    blocks of microbatch i, gathered in model-rank order (what a MoE layer
+    routes), are that microbatch; at M 1 the contiguous block."""
+    def rank(r):
+        return M.Mesh(("data", "model"), {"data": 1, "model": 2}, None, 0, 1,
+                      torch.device("cpu"), model_group=object(), model_rank=r,
+                      world_group=object())
+
+    x = torch.arange(8)
+    assert [rank(r).local({"x": x}, 0)["x"].tolist() for r in (0, 1)] == [[0, 1, 2, 3],
+                                                                          [4, 5, 6, 7]]
+    got = [rank(r).local({"x": x}, 0, microbatch=2)["x"] for r in (0, 1)]
+    assert [g.tolist() for g in got] == [[0, 1, 4, 5], [2, 3, 6, 7]]
+    for i in range(2):  # microbatch i of the shard, from each rank's i-th half
+        assert torch.cat([g[2 * i:2 * i + 2] for g in got]).tolist() == x[4 * i:4 * i + 4].tolist()
+    base = torch.arange(24).reshape(2, 12)  # (K, B): rows on axis 1
+    assert rank(1).local({"x": base}, 1, microbatch=3)["x"].tolist() == [
+        [2, 3, 6, 7, 10, 11], [14, 15, 18, 19, 22, 23]]
+    with pytest.raises(ValueError, match="in 3 microbatches"):
+        rank(0).local({"x": torch.arange(8)}, 0, microbatch=3)
+
+
+def test_remat_recomputation_sees_the_rows_group_at_every_backward():
+    """A remat layer run inside ``moe.rows_split`` is recomputed inside the
+    same group at each backward that unpacks it, outside the loss that
+    entered the group: three backwards through one retained graph (as the
+    Neumann series takes them), and a Hessian-vector product."""
+    import types
+
+    from repro_torch.models import moe, transformer
+
+    seen = []
+
+    def layer(x):
+        seen.append(moe.row_group())
+        return x * x
+
+    group = object()
+    for hvp in (False, True):
+        seen.clear()
+        x = torch.ones(3, requires_grad=True)
+        with moe.rows_split(group):
+            y = transformer._run_layer(types.SimpleNamespace(remat=True), layer, x).sum()
+        if hvp:
+            (g,) = torch.autograd.grad(y, x, create_graph=True)
+            torch.autograd.grad(g.sum(), x)
+        else:
+            for _ in range(3):
+                torch.autograd.grad(y, x, retain_graph=True)
+        assert moe.row_group() is None
+        assert len(seen) >= 2 and all(s is group for s in seen), (hvp, seen)
