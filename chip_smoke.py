@@ -113,7 +113,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    largest update (the tolerances of tests/test_torch_sama.py, where the
    port is held against JAX); one step at the paper's eps 1e-8 reported.
 8. train bf16: bert-base in its own dtype, batch 48, seq 128, unroll 2,
-   BF16_STEPS (2) meta steps through ``MetaLearner.fit`` on WRENCH-analog data: step wall
+   BF16_STEPS (1) meta steps through ``MetaLearner.fit`` on WRENCH-analog data: step wall
    time, samples/s, peak memory, each kernel's launches against L(K+3) +
    L(K+1) forwards, L(K+1) dq and dk/dv and one adam_adapt per theta leaf
    per step, and a profiled step's device time by phase and by kernel.
@@ -189,8 +189,9 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    all-reduce through the host: not the paper's multi-GPU throughput.
    (c) ``DataOptimizer(mesh=)`` loss and el2n scores on the two ranks
    within 1e-5 relative of the one-device pass.
-24. the model axis (``launch.fsdp``; run right after phase 17): gloo ranks
-   spawned on the card, as phase 17's. (a) bert-base f32 (phase 17's
+24. the model axis (``launch.fsdp``; run right after phase 17): four gloo
+   ranks spawned on the card once, as phase 17's, the two-rank meshes on
+   ranks 0-1. (a) bert-base f32 (phase 17's
    learner) at (data 1, model 2), 32 rows: F32_PAIRS manual and pjit
    steps, each held on rank 0 at phase 7's tolerances against the
    one-process Engine step from the gathered state; (b) the same at (2,
@@ -296,7 +297,7 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    whisper's paths.
 23. observability (``repro_torch.obs``; run right after phase 6, whose
    weights and tokens it takes): (a) bert-base in its own dtype, batch 48,
-   seq 128, unroll 2: OBS_PAIRS_TRAIN (2) pairs of whole arms, each a
+   seq 128, unroll 2: OBS_PAIRS_TRAIN (1) pairs of whole arms, each a
    BF16_STEPS-step ``MetaLearner.fit`` from one copy of the state, obs off
    and on (a JSONL sink, the default monitors, the kernels' routing
    mirrored into the default pipeline; the spans are ``phase_profile``'s,
@@ -320,6 +321,21 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    its state the queue, the lanes and the memory, the tokens again equal.
    ``--observability-only N`` runs phase 23 N times after the build and
    phase 6, and prints how many passed.
+25. the last modules (run last): (a) each ``kernels.ops`` function and
+   ``kernels.ref`` oracle on CUDA tensors at phase 4's shapes, one launch
+   per ops call, held at phase 4's tolerances; ``REPRO_KERNEL_BACKEND=plain``
+   and ``backend="plain"`` through the registry raise on a CUDA tensor;
+   ``kernels.work``'s tile sizes equal ``tc_tiles``. (b) The bf16
+   bert-base (B 48, S 128, K 2) and gemma3-1b (B 4, S 1024, all 26
+   layers) SAMA steps attributed by phase (``obs.profile``) on the card
+   and on ``meta`` tensors: per-phase FLOPs, bytes and matmul FLOPs, the
+   kernels' charges and the modules equal number for number, coverage >=
+   0.90; per-phase walls (``phase_profile``) and utilization against 989
+   TFLOP/s with the card's name and power limit; (d) beside each, the
+   roofline's analytic ``step_flops`` and the whole step's share of the
+   peak from either count. (c) ``perf/run.py --only
+   kernels,attention,attribution`` into DIR/bench, each twin asserting
+   parity before its records.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. The weights and data are random, from seeds; nothing is downloaded.
@@ -355,9 +371,10 @@ SEED = 0
 #: run up to 1.6-1.9 times slower on one H100 host than on another. Each
 #: phase keeps its checks, depths and requests; repeats are cut where the
 #: time goes (PERF.md section 6 lists each cut):
-#: the timed bf16 meta steps of phases 8, 10, 18-19, 20(b), 21 and 22 (cut
-#: from 10, then from 5 to 2 when phase 24 came)
-BF16_STEPS = 2
+#: the timed bf16 meta steps of phases 8, 10, 18-19, 20(b), 21, 22 and 23's
+#: arms (cut from 10, then from 5 to 2 when phase 24 came, then to 1 when
+#: phase 25 came)
+BF16_STEPS = 1
 #: the held f32 step pairs of phases 7, 9, 11, 15(a), 18-19, 20(a), 21, 22
 #: and 24(a) (cut from 3, then from 2 when phase 24 came; phase 21 had 2)
 F32_PAIRS = 1
@@ -927,8 +944,9 @@ def _tokens_digest(tokens):
 #: are reported, not held: on the card's shared hosts the arms' median
 #: walls differ by -8% to +8% (training) and -14% to +13% (serving) from
 #: run to run while obs costs ~0.1%, so what obs costs is counted
-#: (``perf/obs_cost.py``) and held
-OBS_PAIRS_TRAIN = 2
+#: (``perf/obs_cost.py``) and held (training's pairs cut from 2 to 1 when
+#: phase 25 came)
+OBS_PAIRS_TRAIN = 1
 OBS_PAIRS_SERVE = 1
 #: the reference's bound: obs costs at most 3% of the median wall time
 OBS_LIMIT = obs_cost.LIMIT
@@ -3112,7 +3130,9 @@ def phase_distributed(dev, out_dir, batch=16, seq=128, unroll=2, steps=2):
 #: GB, phase 15(b)), and 24(c) runs (1, 2) at the same depth so that the
 #: two meshes' peaks compare
 MODEL_AXIS_GEMMA_LAYERS = 12
-#: phase 24's runs: (case, world, [(mesh shape, learners, meta steps)]).
+#: phase 24's runs: (case, world, [(mesh shape, learners, meta steps)]), all
+#: in one spawn of MODEL_AXIS_WORLD ranks (each rank pays its start-up
+#: once), a mesh of two ranks on ranks 0-1 alone.
 #: bert-base's four ranks run (2, 2) and then, on ranks 0-1 alone, (1, 2):
 #: the manual and pjit schedules with base Adam and the manual one with
 #: base Adafactor; qwen2-moe's two ranks run (1, 2), its SMOKE widths at S
@@ -3123,6 +3143,7 @@ MODEL_AXIS_GEMMA_LAYERS = 12
 #: process pays its warm-up (cuBLAS, the kernels' function attributes, the
 #: allocator's growth, gloo's connections), so the (1, 2) step's wall is
 #: the warm one (repeats cut for the run's time limit)
+MODEL_AXIS_WORLD = 4
 MODEL_AXIS_RUNS = (("bert", 4, (((2, 2), ("manual",), 1),
                                 ((1, 2), ("manual", "pjit", "adafactor"), F32_PAIRS))),
                    ("qwen", 2, (((1, 2), ("gathered", "whole_groups"), 1),)),
@@ -3233,10 +3254,11 @@ def _model_axis_learners(case, mesh, schedules, dev, unroll, held):
             for s, learner in learners]
 
 
-def _model_axis_rank(rank, out_dir, case, runs, unroll):
-    """One rank of phase 24 (spawned, gloo, sharing cuda:0): each of
-    ``runs`` (mesh shape, learners, meta steps) in turn, its learners made
-    and freed. "bert": phase 17's bert-base learner (f32, base Adam eps
+def _model_axis_rank(rank, out_dir, unroll):
+    """One rank of phase 24 (spawned, gloo, sharing cuda:0): each case of
+    MODEL_AXIS_RUNS and each of its runs (mesh shape, learners, meta
+    steps) in turn, its learners made and freed; a mesh of two ranks runs
+    on ranks 0-1 alone. "bert": phase 17's bert-base learner (f32, base Adam eps
     1e-3; and phase 11's base Adafactor) on 32 rows, every step held on
     rank 0 against the one-process step from the gathered state (the
     Engine step on the global batch; at a data extent of 2 the emulated
@@ -3247,23 +3269,33 @@ def _model_axis_rank(rank, out_dir, case, runs, unroll):
     "gemma": gemma3-1b at MODEL_AXIS_GEMMA_LAYERS layers under the bf16
     policy, B 4, S 1024, meta batch 2. Per step: the census per group and
     kind, the wall, the launches (held to the one-process counts) and, for
-    bert and qwen, sha256 digests; per run each rank's peak memory.
-    Results to phase24_{case}_rank{rank}.pt."""
+    bert and qwen, sha256 digests; per run each rank's peak memory; per
+    case its seconds. Results to phase24_{case}_rank{rank}.pt."""
     import torch.distributed as dist
-
-    from repro_torch.kernels import dispatch
-    from repro_torch.launch import distributed as D
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.obs.metrics import packed_read
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    pair = dist.new_group([0, 1])  # every rank enters it
+    for case, world, runs in MODEL_AXIS_RUNS:
+        t_case = time.perf_counter()
+        _model_axis_case(rank, out_dir, case, world, runs, unroll, dev, pair)
+        if rank == 0:
+            log(f"model_axis_{case}_seconds: {time.perf_counter() - t_case:.1f}")
+    dist.barrier()  # ranks 2-3 stay in the world until ranks 0-1 are done
+
+
+def _model_axis_case(rank, out_dir, case, world, runs, unroll, dev, pair):
+    """One case of phase 24 on this rank (:func:`_model_axis_rank`)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs.metrics import packed_read
+
     out = {"rank": rank, "runs": {}}
-    pair = dist.new_group([0, 1]) if case == "bert" else None  # every rank enters it
     for shape, schedules, steps in runs:
-        if case == "bert" and shape == (1, 2):
+        if shape[0] * shape[1] < MODEL_AXIS_WORLD:
             if rank > 1:
                 continue
             mesh = make_mesh(shape, ("data", "model"), group=pair, device=dev)
@@ -3333,7 +3365,8 @@ def _model_axis_rank(rank, out_dir, case, runs, unroll):
         out["runs"][shape] = res
         del learners, learner, one, state, new
         torch.cuda.empty_cache()
-    torch.save(out, os.path.join(out_dir, f"phase24_{case}_rank{rank}.pt"))
+    if rank < world:
+        torch.save(out, os.path.join(out_dir, f"phase24_{case}_rank{rank}.pt"))
 
 
 def _model_axis_checks(tag, shape, ranks, unroll):
@@ -3364,7 +3397,8 @@ def _model_axis_checks(tag, shape, ranks, unroll):
 
 def phase_model_axis(dev, out_dir, unroll=2):
     """24: the model mesh axis, FSDP over the model process group
-    (``launch.fsdp``): gloo ranks spawned on cuda:0, as phase 17's.
+    (``launch.fsdp``): one spawn of MODEL_AXIS_WORLD gloo ranks on cuda:0,
+    as phase 17's, its two-rank meshes on ranks 0-1.
     (b) bert-base at full width and depth in f32 (phase 17's learner) on
     four ranks at (2, 2): one manual step on 32 rows held against the
     single-sync step of 2 data shards emulated in one process; the data
@@ -3392,10 +3426,9 @@ def phase_model_axis(dev, out_dir, unroll=2):
     shutil.rmtree(store_dir, ignore_errors=True)
     os.makedirs(store_dir)
     res = {}
+    D.spawn(_model_axis_rank, MODEL_AXIS_WORLD, (store_dir, unroll), store_dir=store_dir,
+            backend="gloo", timeout_s=900)
     for case, world, runs in MODEL_AXIS_RUNS:
-        t0 = time.perf_counter()
-        D.spawn(_model_axis_rank, world, (store_dir, case, runs, unroll), store_dir=store_dir,
-                backend="gloo", timeout_s=900)
         ranks = [torch.load(os.path.join(store_dir, f"phase24_{case}_rank{r}.pt"),
                             weights_only=False) for r in range(world)]
         for shape, schedules, steps in runs:
@@ -3425,8 +3458,7 @@ def phase_model_axis(dev, out_dir, unroll=2):
                             x["held"][f"{field}_share_of_bound"] for x in rows)
             res[tag] = out
             log(f"model_axis_{tag}: " + json.dumps(out))
-        log(f"model_axis_{case}_seconds: {time.perf_counter() - t0:.1f}")
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -4258,6 +4290,244 @@ def phase_vision(cfg, dev):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the kernel registry, per-phase attribution, the kernel,
+# attention and attribution twins, and the roofline's count beside it
+# ---------------------------------------------------------------------------
+
+#: the steps phase 25(b) attributes: (arch, batch, seq, meta batch), unroll 2,
+#: in the config's own dtypes (bf16 activations)
+ATTRIBUTED = (("bert-base", 48, 128, 48), ("gemma3-1b", 4, 1024, 2))
+
+
+def _card_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True)
+    except OSError:
+        return "not read"
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not read"
+
+
+def phase_registry(dev):
+    """25(a): each ``kernels.ops`` function and each ``kernels.ref`` oracle
+    on CUDA tensors at phase 4's shapes (bert-base's embedding for the flat
+    products; gemma3-1b's LM loss view and the ragged rows for the CE, f32):
+    each ops call launches its kernel exactly once and agrees with the
+    oracle at phase 4's tolerances; ``REPRO_KERNEL_BACKEND=plain`` (and
+    ``backend="plain"`` through the registry) on a CUDA tensor raises; and
+    the training kernels' tile sizes that ``kernels.work`` charges equal
+    the libraries' own (``flash_attn.tc_tiles``)."""
+    from repro_torch.kernels import dispatch, flash_attn, ops, ref, work
+    from repro_torch.kernels import weighted_ce as wce
+    from repro_torch.perf import ce_time
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    n = ADAPT_SIZES[0]
+    g, m, gm = (_dev_randn(gen, n, dev) * 1e-2 for _ in range(3))
+    v = _dev_randn(gen, n, dev).square_() * 1e-4
+    lr = 1e-3
+
+    def once(want, fn):
+        dispatch.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        if dispatch.launch_counts() != want:
+            raise AssertionError(f"expected the launches {want}, got "
+                                 f"{dispatch.launch_counts()}")
+        return out
+
+    worst = {}
+    for name, call, oracle in (
+            ("adam_adapt", lambda: ops.adam_adapt_product(g, m, v, gm, t=3, lr=lr),
+             lambda: ref.adam_adapt_product(g, m, v, gm, t=3, b1=0.9, b2=0.999, eps=1e-8,
+                                            lr=lr)),
+            ("lion_adapt", lambda: ops.lion_adapt_product(g, m, gm, lr=lr),
+             lambda: ref.lion_adapt_product(g, m, gm, lr=lr)),
+            ("adafactor_adapt", lambda: ops.adafactor_adapt_product(v, gm, lr=lr),
+             lambda: ref.adafactor_adapt_product(v, gm, lr=lr))):
+        out, ss = once({name: 1}, call)
+        want, want_ss = oracle()
+        excess = _excess(out, want, 1e-7, 1e-5)
+        ss_rel = abs(ss.item() - want_ss.item()) / abs(want_ss.item())
+        if not (excess <= 1.0 and ss_rel <= 1e-4):
+            raise AssertionError(f"ops.{name} vs ref at N={n}: out {excess:.3f} of the "
+                                 f"tolerance, sum of squares {ss_rel:.2e} relative")
+        worst[name] = (out - want).abs().max().item()
+    for shape_name, b, s, vocab, sliced in (CE_SHAPES[0], CE_SHAPES[1]):
+        x, t, gg = ce_time.ce_inputs(gen, dev, b, s, vocab, torch.float32, sliced)
+        x = x.detach().requires_grad_(True)
+        t = t.reshape(x.shape[:-1])
+        ce = once({wce.FWD: 1, f"{wce.FWD}_f32": 1}, lambda: ops.cross_entropy(x, t))
+        (dx,) = once({wce.BWD: 1, f"{wce.BWD}_f32": 1},
+                     lambda: torch.autograd.grad((ce * gg.reshape(ce.shape)).sum(), x))
+        x2, t2 = x.detach().reshape(-1, vocab), t.reshape(-1)
+        want = ref.cross_entropy(x2, t2)
+        want_dx = ref.cross_entropy_grad(x2, t2, gg)
+        ce_excess = _excess(ce.reshape(-1), want, 1e-5, 1e-5)
+        dx_excess = _excess(dx.reshape(-1, vocab), want_dx, 1e-6, 1e-5)
+        if not (ce_excess <= 1.0 and dx_excess <= 1.0):
+            raise AssertionError(f"ops.cross_entropy vs ref at {shape_name}: ce "
+                                 f"{ce_excess:.3f}, dlogits {dx_excess:.3f} of the tolerance")
+        worst[f"cross_entropy {shape_name}"] = max(
+            (ce.reshape(-1) - want).abs().max().item(),
+            (dx.reshape(-1, vocab) - want_dx).abs().max().item())
+        del x, t, gg, ce, dx, x2, want, want_dx
+        torch.cuda.empty_cache()
+    prev = os.environ.get(dispatch.ENV_VAR)
+    os.environ[dispatch.ENV_VAR] = "plain"
+    try:
+        for call in (lambda: ops.adam_adapt_product(g, m, v, gm, t=3, lr=lr),
+                     lambda: dispatch.get_kernel("weighted_ce")(g[:8].reshape(2, 4),
+                                                                torch.zeros(2, device=dev))):
+            try:
+                call()
+            except ValueError as e:
+                if dispatch.ENV_VAR not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{dispatch.ENV_VAR}=plain on a cuda tensor did not "
+                                     "raise")
+    finally:
+        if prev is None:
+            os.environ.pop(dispatch.ENV_VAR)
+        else:
+            os.environ[dispatch.ENV_VAR] = prev
+    try:
+        dispatch.get_kernel("lion_adapt", backend="plain")(g, m, gm)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("backend='plain' through the registry on a cuda tensor did not "
+                             "raise")
+    tiles = {}
+    for kernel, key in ((flash_attn.FWD, "fwd"), (flash_attn.DQ, "dq"),
+                        (flash_attn.DKV, "dkv")):
+        for grp in (1, 2, 4, 8):
+            for dh in (64, 128, 256):
+                got, want = flash_attn.tc_tiles(kernel, grp, dh), work.tiles(key, grp, dh)
+                if got != want:
+                    raise AssertionError(f"{kernel} G={grp} Dh={dh}: the library tiles {got}, "
+                                         f"kernels.work charges {want}")
+                tiles[f"{key} G{grp} Dh{dh}"] = got
+    log(f"registry: ops and ref on cuda tensors, one launch per call, max_abs_err {worst} "
+        f"(flat rtol 1e-5 atol 1e-7, sums rtol 1e-4; CE rtol 1e-5 atol 1e-5, dlogits atol "
+        f"1e-6); {dispatch.ENV_VAR}=plain and backend='plain' raise on cuda tensors; "
+        f"kernels.work's tile sizes equal the libraries' at {len(tiles)} (kernel, G, Dh)")
+    dispatch.reset_launches()
+    return {"worst": worst}
+
+
+def _attributed_learner(cfg, dev, batch, seq, meta_batch, unroll=2):
+    """The bf16 learner of phases 8 and 10 on its warm batches."""
+    from repro_torch import optim
+    from repro_torch.models import Model
+
+    model = Model(cfg, device=dev)
+    learner = _learner(model, dev, unroll, optim.adam(1e-3))
+    if cfg.family == "encoder":
+        train, _ = _wrench(cfg, seq, 1024, 256, SEED + 30)
+        base, meta = _warm_batches(train, dev, batch, unroll, SEED + 31)(0)
+    else:
+        base, meta = _lm_warm_batches(cfg, dev, batch, seq, unroll, SEED + 32)(0)
+    return learner, base, {k: x[:meta_batch] for k, x in meta.items()}
+
+
+def phase_attribution(dev, steps=ATTRIBUTED):
+    """25(b) and (d): each step of ``steps`` attributed by phase
+    (``obs.profile.attribute``) on the card, with each phase's wall from
+    ``MetaLearner.phase_profile``'s synced spans and its utilization
+    against the peak of the step's compute dtype (one step first, so that
+    first-use costs stay out of the spans), then traced on ``meta``
+    tensors: per-phase FLOPs, bytes and matmul FLOPs, the kernels' charges
+    and the modules must equal the card's number for number (a phase stack
+    that the autograd thread cannot see, or a kernel charged differently
+    by route, breaks it). Coverage >= 0.90. Beside the counted total, the
+    roofline's analytic ``step_flops`` at the same config and shape (its
+    meta batch is B / 8, the step's is the given one), and the whole
+    step's share of the peak from each count over the sum of the top-level
+    phase walls."""
+    from repro_torch import configs
+    from repro_torch.configs import InputShape
+    from repro_torch.obs import profile
+    from repro_torch.roofline import analysis
+
+    card_line = _card_line()
+    out = {}
+    for arch, batch, seq, meta_batch in steps:
+        cfg = configs.get_config(arch) if dev.type == "cuda" else configs.get_smoke_config(arch)
+        learner, base, meta = _attributed_learner(cfg, dev, batch, seq, meta_batch)
+        learner.step_fn(learner.state, base, meta)  # first-use costs out of the spans
+        spans = learner.phase_profile(base, meta)
+        card = profile.attribute(learner.step_fn, learner.state, base, meta, spans=spans)
+        traced = profile.attribute(learner.step_fn, profile.to_meta(learner.state),
+                                   profile.to_meta(base), profile.to_meta(meta))
+        for ph in set(card["phases"]) | set(traced["phases"]):
+            a, b = card["phases"].get(ph, {}), traced["phases"].get(ph, {})
+            for key in ("flops", "bytes", "matmul_flops"):
+                if a.get(key) != b.get(key):
+                    raise AssertionError(f"{arch}: phase {ph} {key} {a.get(key)} on the card, "
+                                         f"{b.get(key)} on meta")
+        if card["kernels"] != traced["kernels"] or card["modules"] != traced["modules"]:
+            raise AssertionError(f"{arch}: kernel charges or modules differ between the card "
+                                 f"and meta: {card['kernels']} vs {traced['kernels']}")
+        if card["coverage"] < 0.90:
+            raise AssertionError(f"{arch}: attribution coverage {card['coverage']:.4f}")
+        wall_s = sum(s.dur_s for s in spans if s.depth == 0)
+        counts = analysis.param_counts(learner.state.theta)
+        analytic = analysis.step_flops(cfg, counts, InputShape(arch, seq, batch, "train"),
+                                       "train")
+        counted = card["total"]["flops"]
+        peak = card["peak_flops"]
+        phases = {ph: {k: b.get(k) for k in ("flops", "matmul_flops", "bytes", "wall_us",
+                                                "utilization", "peak_live_bytes")}
+                  for ph, b in card["phases"].items()}
+        row = {"arch": arch, "batch": batch, "seq": seq, "meta_batch": meta_batch,
+               "unroll": 2, "card": card_line, "compute_dtype": card["compute_dtype"],
+               "peak_flops": peak, "coverage": card["coverage"],
+               "top_module": card["top_module"],
+               "modules": {k: v["flop_frac"] for k, v in list(card["modules"].items())[:4]},
+               "kernels": {k: {"calls": v["calls"], "flops": v["flops"]}
+                           for k, v in card["kernels"].items()},
+               "phases": phases, "step_wall_s": wall_s, "counted_flops": counted,
+               "analytic_step_flops": analytic, "counted_over_analytic": counted / analytic,
+               "share_of_peak_counted": counted / wall_s / peak,
+               "share_of_peak_analytic": analytic / wall_s / peak,
+               "card_equals_meta": True}
+        log(f"attribution {arch}: {json.dumps(row)}")
+        out[arch] = row
+        del learner, base, meta
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_bench_twins(out_dir):
+    """25(c): ``perf/run.py --only kernels,attention,attribution`` on the
+    card, each twin asserting its parity gates before its records, into
+    DIR/bench."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.perf import run as run_mod
+
+    bench_dir = os.path.join(out_dir, "bench")
+    dispatch.reset_launches()
+    run_mod.main(["--only", "kernels,attention,attribution", "--json-dir", bench_dir,
+                  "--strict"])
+    launches = dispatch.launch_counts()
+    files = sorted(os.listdir(bench_dir))
+    want = ["BENCH_torch_attention.json", "BENCH_torch_attribution.json",
+            "BENCH_torch_kernels.json"]
+    if [f for f in files if f in want] != want:
+        raise AssertionError(f"bench twins wrote {files}")
+    rows = {}
+    for f in want:
+        with open(os.path.join(bench_dir, f)) as fh:
+            rows[f] = {r["name"]: r["derived"] for r in json.load(fh)["rows"]}
+    log(f"bench_twins: {json.dumps(rows)} launches {json.dumps(launches)}")
+    dispatch.reset_launches()
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
@@ -4571,6 +4841,15 @@ def main():
         if n not in ("lion_adapt", "adafactor_adapt")]
     if not min(on_path) >= 1:
         raise AssertionError(f"whisper-small: a kernel of its path did not launch: {on_path}")
+
+    # phase 25: the kernel registry on the card, per-phase attribution of the
+    # bf16 bert-base and gemma3-1b steps held against their meta traces, the
+    # kernel, attention and attribution twins, the roofline's count beside
+    torch.cuda.empty_cache()
+    log(f"phase 25 starts with {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+    timed("registry", phase_registry, dev)
+    timed("attribution", phase_attribution, dev)
+    timed("bench_twins", phase_bench_twins, args.out)
 
     log(f"phase_seconds: {json.dumps(secs)} total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": [entry] + train_entries}))

@@ -179,12 +179,16 @@ class MetaLearner:
         return history
 
     def profile(self, base_batches, meta_batch, *, warmup: int = 2, repeats: int = 5,
-                name: Optional[str] = None, samples_per_step: Optional[float] = None):
+                name: Optional[str] = None, samples_per_step: Optional[float] = None,
+                attribution: bool = False, attribution_spans=None):
         """Measure this learner's step on example batches through
         ``repro_torch.perf.profile_step``: warmup/repeat/synchronize timing,
         the first call's seconds and, on the card, peak memory. Returns a
         ``perf.PerfRecord``. Every call steps from ``self.state``, which is
-        not advanced."""
+        not advanced. ``attribution=True`` adds the per-phase attribution
+        of one step (``obs.profile``); ``attribution_spans`` (from
+        :meth:`phase_profile`) join each phase's wall time and utilization
+        into it."""
 
         from repro_torch import perf
 
@@ -198,7 +202,8 @@ class MetaLearner:
             extra.update(mesh=dict(self.mesh.shape), backend=self.mesh.backend)
         return perf.profile_step(name or self.method.name, self.step_fn, self.state,
                                  base_batches, meta_batch, samples_per_step=samples_per_step,
-                                 warmup=warmup, repeats=repeats, extra=extra)
+                                 warmup=warmup, repeats=repeats, extra=extra,
+                                 attribution=attribution, attribution_spans=attribution_spans)
 
     def phase_profile(self, base_batches, meta_batch):
         """Per-phase wall times: ONE step under an activated span tracer

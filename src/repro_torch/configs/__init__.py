@@ -5,7 +5,7 @@ vision model with gated cross-attention)."""
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape
 
 _MODULES = {
     "gemma3-1b": "gemma3_1b",
@@ -20,6 +20,8 @@ _MODULES = {
     "minicpm3-4b": "minicpm3_4b",
     "bert-base": "bert_base",
 }
+
+ASSIGNED_ARCHS = tuple(k for k in _MODULES if k != "bert-base")
 
 
 def _mod(name: str):
@@ -40,4 +42,12 @@ def list_archs():
     return sorted(_MODULES)
 
 
-__all__ = ["ArchConfig", "get_config", "get_smoke_config", "list_archs"]
+__all__ = [
+    "ASSIGNED_ARCHS",
+    "ArchConfig",
+    "INPUT_SHAPES",
+    "InputShape",
+    "get_config",
+    "get_smoke_config",
+    "list_archs",
+]

@@ -61,10 +61,10 @@ def init_data_optimization_lam(
     device="cuda",
 ) -> Tree:
     """Random meta parameters from ``seed`` on ``device`` (``"cuda"``
-    unless the caller passes ``device="cpu"``)."""
+    unless the caller passes ``device="cpu"``; on ``"meta"``, shapes only)."""
 
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     lam = {}
     if reweight:
         in_dim = 2 if use_uncertainty else 1
@@ -142,7 +142,8 @@ def softmax_per_example(apply_fn: Callable[[Tree, torch.Tensor], torch.Tensor]) 
     def fn(theta, batch):
         logits = apply_fn(theta, batch["x"])
         num_classes = logits.shape[-1]
-        onehot = F.one_hot(batch["y"].long(), num_classes).to(logits.dtype)
+        onehot = (batch["y"][..., None] == torch.arange(num_classes, device=logits.device)).to(
+            logits.dtype)  # one_hot as one compare: the same work on every device
         logp = F.log_softmax(logits, dim=-1)
         if num_classes >= dispatch.CE_VOCAB_THRESHOLD:
             loss = vocab_cross_entropy(logits, batch["y"])

@@ -34,9 +34,13 @@ def adafactor_adapt(vhat, g_meta, *, lr=1.0, eps=1e-8, backend=None):
     sum(out**2) f32 scalar).
 
     CUDA tensors launch the kernel (f32 only); CPU tensors (or
-    ``backend="plain"``) take :func:`adafactor_adapt_plain`."""
-    if dispatch.route("adafactor_adapt", vhat, backend) == dispatch.PLAIN:
-        return adafactor_adapt_plain(vhat, g_meta, lr=lr, eps=eps)
-    flat.check("adafactor_adapt", vhat=vhat, g_meta=g_meta)
-    return flat.launch("adafactor_adapt", (vhat, g_meta), flat.device_scalars(vhat.device, lr),
-                       (eps,))
+    ``backend="plain"``) take :func:`adafactor_adapt_plain`; meta tensors
+    give empty outputs. Every route charges the call's work (``flat.run``)."""
+
+    def cuda():
+        flat.check("adafactor_adapt", vhat=vhat, g_meta=g_meta)
+        return flat.launch("adafactor_adapt", (vhat, g_meta),
+                           flat.device_scalars(vhat.device, lr), (eps,))
+
+    return flat.run("adafactor_adapt", vhat, dispatch.route("adafactor_adapt", vhat, backend),
+                    lambda: adafactor_adapt_plain(vhat, g_meta, lr=lr, eps=eps), cuda)

@@ -65,10 +65,12 @@ def adam_adapt(g, m, v, g_meta, *, t, b1=0.9, b2=0.999, eps=1e-8, lr=1.0, backen
     (out (N,), sum(out**2) f32 scalar).
 
     CUDA tensors launch the kernel (f32 only); CPU tensors (or
-    ``backend="plain"``) take :func:`adam_adapt_plain`."""
-    if dispatch.route("adam_adapt", g, backend) == dispatch.PLAIN:
-        return adam_adapt_plain(g, m, v, g_meta, t=t, b1=b1, b2=b2, eps=eps, lr=lr)
-    return _adam_adapt_cuda(g, m, v, g_meta, t=t, b1=b1, b2=b2, eps=eps, lr=lr)
+    ``backend="plain"``) take :func:`adam_adapt_plain`; meta tensors give
+    empty outputs. Every route charges the call's work (``flat.run``)."""
+    kw = dict(t=t, b1=b1, b2=b2, eps=eps, lr=lr)
+    return flat.run("adam_adapt", g, dispatch.route("adam_adapt", g, backend),
+                    lambda: adam_adapt_plain(g, m, v, g_meta, **kw),
+                    lambda: _adam_adapt_cuda(g, m, v, g_meta, **kw))
 
 
 def _check(g, m, v, g_meta):

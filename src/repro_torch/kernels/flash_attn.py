@@ -37,7 +37,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, dispatch
+from repro_torch.kernels import build, dispatch, work
 
 NEG = -1e30
 _TINY = 1e-30
@@ -125,12 +125,23 @@ def flash_decode(q, k, v, q_pos, local_flag=None, *, softcap=0.0, window=0,
     (lane, KV head) forming one thread-block cluster that merges its
     splits (default :func:`decode_cluster`; a size the card cannot take
     raises ``ValueError``). CPU tensors (or ``backend="plain"``) take
-    :func:`flash_decode_plain`."""
-    if dispatch.route("flash_decode", q, backend) == dispatch.PLAIN:
-        return flash_decode_plain(q, k, v, q_pos, local_flag, softcap=softcap,
-                                  window=window)
-    return _flash_decode_cuda(q, k, v, q_pos, local_flag, softcap=softcap,
-                              window=window, n_splits=n_splits)
+    :func:`flash_decode_plain`; meta tensors give an empty output. Every
+    route charges the call's work (``kernels.work.decode``)."""
+    chosen = dispatch.route("flash_decode", q, backend)
+    use_window = int(window) if (window and local_flag is not None
+                                 and bool(local_flag)) else 0
+    with dispatch.uncounted():
+        if chosen == dispatch.PLAIN:
+            out = flash_decode_plain(q, k, v, q_pos, local_flag, softcap=softcap,
+                                     window=window)
+        elif chosen == dispatch.META:
+            out = torch.empty_like(q)
+        else:
+            out = _flash_decode_cuda(q, k, v, q_pos, local_flag, softcap=softcap,
+                                     window=window, n_splits=n_splits)
+    b, _, t, kv, g, dh = work.attention_dims(q, k)
+    dispatch.charge("flash_decode", work.decode(b, t, kv, g, dh, q.dtype, window=use_window))
+    return out
 
 
 @functools.lru_cache(maxsize=1)
@@ -445,12 +456,42 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out):
         q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
-        g_out = g_out.contiguous()
-        # delta = rowsum(dO * O) in f32, outside the kernels as in JAX
-        delta = torch.sum(g_out.float() * out.float(), dim=-1)
-        grads = _bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, g_out, **ctx.opts)
-        dq, dk, dv = dispatch.first_order_only("flash_attention", (q, k, v, g_out), grads)
+        _charge_backward(q, k, ctx.opts)
+        with dispatch.uncounted():
+            g_out = g_out.contiguous()
+            # delta = rowsum(dO * O) in f32, outside the kernels as in JAX
+            delta = torch.sum(g_out.float() * out.float(), dim=-1)
+            grads = _bwd_cuda(q, k, v, q_pos, kv_pos, lse, delta, g_out, **ctx.opts)
+            dq, dk, dv = dispatch.first_order_only("flash_attention", (q, k, v, g_out), grads)
         return dq, dk, dv, None, None, None, None, None
+
+
+def _work(kernel, q, k, opts):
+    return work.attention(kernel, *work.attention_dims(q, k), q.dtype, causal=opts["causal"],
+                          window=opts["window"])
+
+
+def _charge_backward(q, k, opts):
+    dispatch.charge(DQ, _work("dq", q, k, opts))
+    dispatch.charge(DKV, _work("dkv", q, k, opts))
+
+
+class _MetaFlashAttention(torch.autograd.Function):
+    """The meta route: empty outputs of the kernels' shapes and dtypes, the
+    backward's work charged where it runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, softcap, window, causal):
+        ctx.opts = dict(window=window, causal=causal)
+        ctx.save_for_backward(q, k, v)
+        return torch.empty_like(q)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v = ctx.saved_tensors
+        _charge_backward(q, k, ctx.opts)
+        with dispatch.uncounted():
+            return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), None, None, None
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, local_flag=None, *, softcap=0.0, window=0,
@@ -464,20 +505,32 @@ def flash_attention(q, k, v, q_pos, kv_pos, local_flag=None, *, softcap=0.0, win
     order only: a second derivative raises). CPU tensors (or
     ``backend="plain"``) take the plain forward's ops under autograd, as
     the JAX package's ``ref`` twin does, so they differentiate to any
-    order."""
+    order. Meta tensors give empty outputs. Every route charges each
+    kernel's work (``kernels.work.attention``) and computes inside
+    ``dispatch.uncounted``."""
     use_window = int(window) if (window and local_flag is not None and bool(local_flag)) else 0
     if use_window and not causal:
         raise ValueError("flash_attention: causal=False with an engaged window is refused: "
                          "the JAX reference drops the window there and its kernel keeps it")
-    plain = dispatch.route("flash_attention", q, backend) == dispatch.PLAIN
+    chosen = dispatch.route("flash_attention", q, backend)
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
-    if plain:
-        return flash_attention_fwd_plain(q, k, v, q_pos, kv_pos, softcap=float(softcap or 0.0),
-                                         window=use_window, causal=bool(causal),
-                                         chunk=int(chunk or 0))[0]
-    return _FlashAttention.apply(q, k, v, q_pos, kv_pos, float(softcap or 0.0), use_window,
-                                 bool(causal))
+    opts = dict(window=use_window, causal=bool(causal))
+    with dispatch.uncounted():
+        if chosen == dispatch.PLAIN:
+            out = flash_attention_fwd_plain(q, k, v, q_pos, kv_pos,
+                                            softcap=float(softcap or 0.0), window=use_window,
+                                            causal=bool(causal), chunk=int(chunk or 0))[0]
+        elif chosen == dispatch.META:
+            out = _MetaFlashAttention.apply(q, k, v, float(softcap or 0.0), use_window,
+                                            bool(causal))
+        else:
+            out = _FlashAttention.apply(q, k, v, q_pos, kv_pos, float(softcap or 0.0),
+                                        use_window, bool(causal))
+    dispatch.charge(FWD, _work("fwd", q, k, opts))
+    if chosen == dispatch.PLAIN:
+        dispatch.plain_backward(out, [q, k, v], lambda: _charge_backward(q, k, opts))
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,11 +12,28 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, dispatch
+from repro_torch.kernels import build, dispatch, work
 
 #: threads per block and the most blocks one launch takes (csrc/flat_pass.cuh)
 THREADS = 256
 MAX_BLOCKS = 8 * 132
+
+
+def run(name: str, first: torch.Tensor, route: str, plain, cuda):
+    """One call of flat kernel ``name`` on ``route``: ``plain()``, ``cuda()``
+    or, on the meta route, empty (out, sum of squares) of the kernel's
+    shapes and dtypes; computed inside ``dispatch.uncounted``, with the
+    call's analytic work charged (``kernels.work.flat``)."""
+    with dispatch.uncounted():
+        if route == dispatch.PLAIN:
+            out = plain()
+        elif route == dispatch.META:
+            out = (torch.empty_like(first),
+                   torch.empty((), dtype=torch.float32, device=first.device))
+        else:
+            out = cuda()
+    dispatch.charge(name, work.flat(name, first.numel(), first.dtype))
+    return out
 
 
 def sumsq32(out: torch.Tensor) -> torch.Tensor:

@@ -33,9 +33,13 @@ def lion_adapt(g, m, g_meta, *, lr=1.0, b1=0.9, delta=1e-3, backend=None):
     on the inputs' device. Returns (out (N,), sum(out**2) f32 scalar).
 
     CUDA tensors launch the kernel (f32 only); CPU tensors (or
-    ``backend="plain"``) take :func:`lion_adapt_plain`."""
-    if dispatch.route("lion_adapt", g, backend) == dispatch.PLAIN:
-        return lion_adapt_plain(g, m, g_meta, lr=lr, b1=b1, delta=delta)
-    flat.check("lion_adapt", g=g, m=m, g_meta=g_meta)
-    return flat.launch("lion_adapt", (g, m, g_meta), flat.device_scalars(g.device, lr),
-                       (b1, 1.0 - b1, delta))
+    ``backend="plain"``) take :func:`lion_adapt_plain`; meta tensors give
+    empty outputs. Every route charges the call's work (``flat.run``)."""
+
+    def cuda():
+        flat.check("lion_adapt", g=g, m=m, g_meta=g_meta)
+        return flat.launch("lion_adapt", (g, m, g_meta), flat.device_scalars(g.device, lr),
+                           (b1, 1.0 - b1, delta))
+
+    return flat.run("lion_adapt", g, dispatch.route("lion_adapt", g, backend),
+                    lambda: lion_adapt_plain(g, m, g_meta, lr=lr, b1=b1, delta=delta), cuda)

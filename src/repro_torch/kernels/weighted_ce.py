@@ -29,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, dispatch
+from repro_torch.kernels import build, dispatch, work
 
 FWD, BWD = "weighted_ce_fwd", "weighted_ce_bwd"
 
@@ -74,9 +74,27 @@ class _CrossEntropy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         logits, targets, lse = ctx.saved_tensors
-        d = _bwd_cuda(logits, targets, lse, g.float().contiguous())
-        (d,) = dispatch.first_order_only("weighted_ce", (logits, g), (d,))
+        dispatch.charge(BWD, work.ce(lse.shape[0], logits.shape[-1], logits.dtype, True))
+        with dispatch.uncounted():
+            d = _bwd_cuda(logits, targets, lse, g.float().contiguous())
+            (d,) = dispatch.first_order_only("weighted_ce", (logits, g), (d,))
         return d, None
+
+
+class _MetaCrossEntropy(torch.autograd.Function):
+    """The meta route: empty outputs of the kernels' shapes and dtypes, the
+    backward's work charged where it runs."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        ctx.shape, ctx.dtype = logits.shape, logits.dtype
+        return logits.new_empty((targets.numel(),), dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        dispatch.charge(BWD, work.ce(g.numel(), ctx.shape[-1], ctx.dtype, True))
+        with dispatch.uncounted():
+            return g.new_empty(ctx.shape, dtype=ctx.dtype), None
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *, backend=None) -> torch.Tensor:
@@ -85,16 +103,26 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *, backend=None) 
     passes (f32, bf16 or f16 logits; first order only, a second derivative
     raises). CPU tensors (or ``backend="plain"``) take the plain forward's
     ops under autograd, as the JAX package's ``ref`` twin does, so they
-    differentiate to any order."""
+    differentiate to any order. Meta tensors give empty outputs. Every
+    route charges each pass's work (``kernels.work.ce``) and computes it
+    inside ``dispatch.uncounted``."""
     if logits.shape[:-1] != targets.shape:
         raise ValueError(f"weighted_ce: logits {tuple(logits.shape)} do not match targets "
                          f"{tuple(targets.shape)}")
-    plain = dispatch.route("weighted_ce", logits, backend) == dispatch.PLAIN
+    chosen = dispatch.route("weighted_ce", logits, backend)
     flat_targets = targets.reshape(-1).to(torch.int32).contiguous()
-    if plain:
-        ce, _ = cross_entropy_fwd_plain(logits.reshape(-1, logits.shape[-1]), flat_targets)
-    else:
-        ce = _CrossEntropy.apply(logits, flat_targets)
+    rows, v = flat_targets.numel(), logits.shape[-1]
+    with dispatch.uncounted():
+        if chosen == dispatch.PLAIN:
+            ce, _ = cross_entropy_fwd_plain(logits.reshape(-1, v), flat_targets)
+        elif chosen == dispatch.META:
+            ce = _MetaCrossEntropy.apply(logits, flat_targets)
+        else:
+            ce = _CrossEntropy.apply(logits, flat_targets)
+    dispatch.charge(FWD, work.ce(rows, v, logits.dtype))
+    if chosen == dispatch.PLAIN:
+        dispatch.plain_backward(ce, [logits], lambda: dispatch.charge(
+            BWD, work.ce(rows, v, logits.dtype, True)))
     return ce.reshape(targets.shape)
 
 

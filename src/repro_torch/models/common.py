@@ -186,6 +186,14 @@ def sinusoidal_pos(seq: int, d: int, dtype=torch.float32, device=None):
 # ---------------------------------------------------------------------------
 
 
+def one_hot(idx: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
+    """``jax.nn.one_hot``: rows of ``n`` with a 1 at ``idx`` (all 0 where
+    ``idx`` is outside 0..n-1), as one compare. ``F.one_hot`` checks its
+    indices on the host on the CPU and takes another form on ``meta``
+    tensors; this form does the same work on every device."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def softcap(x, cap: float):
     """Gemma-2 logit soft-capping."""
     if not cap:

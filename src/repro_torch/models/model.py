@@ -107,7 +107,7 @@ class Model:
     def classifier_per_example(self, params, batch) -> PerExample:
         """family == 'encoder': batch = {tokens (B, S), y (B,)}."""
         logits, _ = self.forward(params, batch)
-        onehot = F.one_hot(batch["y"].long(), logits.shape[-1]).to(logits.dtype)
+        onehot = cm.one_hot(batch["y"], logits.shape[-1], logits.dtype)
         logp = F.log_softmax(logits, dim=-1)
         if logits.shape[-1] >= dispatch.CE_VOCAB_THRESHOLD:
             loss = vocab_cross_entropy(logits, batch["y"])

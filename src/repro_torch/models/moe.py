@@ -27,7 +27,6 @@ from __future__ import annotations
 from typing import Any, List, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.models import common as cm
@@ -121,13 +120,13 @@ def route(cfg, probs: torch.Tensor, capacity: int):
     gate_vals, expert_idx = top_k(probs, K)  # (n, G, K)
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
 
-    assign = F.one_hot(expert_idx, E).float()  # (n, G, K, E)
+    assign = cm.one_hot(expert_idx, E)  # (n, G, K, E)
     flat = assign.transpose(1, 2).reshape(n, K * G, E)
     pos = torch.cumsum(flat, dim=1) - flat
     pos = torch.sum(pos * flat, dim=-1)  # (n, K*G)
     keep = (pos < capacity) & (flat.sum(-1) > 0)
     # jax.nn.one_hot of an index >= capacity is all zeros; keep is False there
-    pos_oh = F.one_hot(pos.long().clamp_max(capacity - 1), capacity).float() * keep[..., None]
+    pos_oh = cm.one_hot(pos.long().clamp_max(capacity - 1), capacity) * keep[..., None]
     flat_k = flat.reshape(n, K, G, E)
     pos_oh_k = pos_oh.reshape(n, K, G, capacity)
     dispatch = torch.einsum("nkge,nkgc->ngec", flat_k, pos_oh_k)  # 0/1
@@ -191,7 +190,7 @@ def apply_moe(cfg, p: Tree, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     # GShard aux loss: E * sum_e f_e * p_e over the whole batch (the
     # reference takes top_k of the same rows again: the same indices)
     probs_flat = probs.reshape(T, E)
-    assign = F.one_hot(expert_idx.reshape(T, -1), E).float()
+    assign = cm.one_hot(expert_idx.reshape(T, -1), E)
     if whole and rows is not None and rows.mesh.model_size > 1:
         # the shard's means from the group's sums (the all-reduce's backward
         # sums the ranks' cotangents, so each rank's probs get the whole

@@ -146,19 +146,46 @@ def activate(tracer: Tracer) -> Iterator[Tracer]:
         _ACTIVE.reset(token)
 
 
+#: the open phases, innermost last. Process-global, not a contextvar: the
+#: autograd engine runs a CUDA backward on a thread of its own, and the
+#: attribution (``obs/profile.py``) charges that backward's work to the
+#: phase that called it
+PHASE_STACK: List[str] = []
+
+#: called at each phase's entry (before the push) and exit (before the
+#: pop) while the attribution reads per-phase memory peaks; else None
+_BOUNDARY: Optional[Callable[[], None]] = None
+
+
+def set_boundary(hook: Optional[Callable[[], None]]):
+    """Install ``hook`` at the phase boundaries; returns the one it replaces."""
+    global _BOUNDARY
+    prev, _BOUNDARY = _BOUNDARY, hook
+    return prev
+
+
 @contextlib.contextmanager
 def phase(name: str) -> Iterator[None]:
     """Annotate an engine phase: always a ``record_function`` range (the
-    profiler's phase names, with obs on or off); also a host span iff a
-    Tracer is activated in the current context."""
+    profiler's phase names, with obs on or off) and an entry of
+    :data:`PHASE_STACK`; also a host span iff a Tracer is activated in the
+    current context."""
 
     tracer = _ACTIVE.get()
-    with record_function(name):
-        if tracer is None:
-            yield
-        else:
-            with tracer._timed(name):
+    if _BOUNDARY is not None:
+        _BOUNDARY()
+    PHASE_STACK.append(name)
+    try:
+        with record_function(name):
+            if tracer is None:
                 yield
+            else:
+                with tracer._timed(name):
+                    yield
+    finally:
+        if _BOUNDARY is not None:
+            _BOUNDARY()
+        PHASE_STACK.pop()
 
 
 # ---------------------------------------------------------------------------

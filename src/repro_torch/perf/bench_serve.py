@@ -12,7 +12,8 @@ bucketed decode views; weights from seed 0):
   per-request latency;
 * ``serve_continuous``: the same requests submitted together to a
   ``ServeExecutor`` with 8 decode slots: wall time, sustained qps,
-  p50/p99, decode steps, the paged cache's peak bytes;
+  p50/p99, decode steps, the paged cache's peak bytes, and the
+  attribution of one more whole run by phase (``obs.profile``);
 * ``serve_paged_memory``: the paged peak against the dense ``slots x
   max_len`` cache (a meta-device probe, nothing allocated);
 * ``serve_traced``: the continuous arm with the whole request lifecycle
@@ -188,14 +189,25 @@ def run(*, fast: bool = True, device="cuda") -> Bench:
         samples_per_s=qps_serial, latency=lat_serial.as_dict(),
         extra={"arch": ARCH, "requests": n_req, "gen": gen, "mode": "serial"},
     ))
-    bench.emit_record(perf.PerfRecord(
+    # attribute one whole run of the same requests: the fused decode step
+    # runs under the "serve_step" phase, prefill under "serve_prefill"
+    from repro_torch.obs import profile as profile_mod
+
+    attr_ex = serve.ServeExecutor(model, params, scfg)
+    for p, g in zip(prompts, gens):
+        attr_ex.submit(p, max_new_tokens=g)
+    cb_rec = perf.PerfRecord(
         name="serve_continuous", us_per_step=t_cb.as_dict(),
         samples_per_s=qps_cb, latency=stats.latency.as_dict(),
         extra={"arch": ARCH, "requests": n_req, "gen": gen, "slots": SLOTS,
                "mode": "continuous", "decode_steps": stats.steps,
                "cache_peak_bytes": paged_peak, "dense_cache_bytes": dense,
                "buckets": stats.memory["buckets"]},
-    ))
+    )
+    cb_rec.attribution = profile_mod.attribute(
+        attr_ex.run, phases=profile_mod.DEFAULT_PHASES + ("serve_prefill",),
+        device=torch.device(device))
+    bench.emit_record(cb_rec)
     bench.emit("serve_serial", t_serial.median_us,
                f"qps={qps_serial:.3f};p50_us={lat_serial.p50_us:.0f};"
                f"p99_us={lat_serial.p99_us:.0f}")
@@ -233,8 +245,6 @@ def run(*, fast: bool = True, device="cuda") -> Bench:
     ))
     bench.claim("tracing_within_3pct", overhead <= obs_cost.LIMIT)
     bench.notes.update({
-        "left_out": "serve_continuous has no attribution section (the JAX package's "
-                    "attribute() parses XLA HLO; ROADMAP queue 1 item 11)",
         "asserts": ["tokens identical request by request", "qps_continuous > qps_serial "
                     "at >= 8 requests", "paged peak < dense slots x max_len",
                     "every traced request timeline rebuilds with one terminal event",

@@ -41,6 +41,17 @@ def census(counter: CollectiveCounter) -> Dict[str, Any]:
     return out
 
 
+def census_of(fn, *args, **kwargs) -> Dict[str, Any]:
+    """The census of one executed call ``fn(*args, **kwargs)``: the
+    collectives it made, counted as they ran (the reference lowers and
+    compiles ``fn`` and parses its HLO). Under a mesh every rank must make
+    the call."""
+
+    with CollectiveCounter() as counter:
+        fn(*args, **kwargs)
+    return census(counter)
+
+
 def verify_single_sync(stats: Union[CollectiveCounter, Dict[str, Any]],
                        unroll_steps: int, group: str = "data") -> Dict[str, Any]:
     """Check the paper's single-sync invariant on one executed step: its

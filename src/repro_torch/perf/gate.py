@@ -19,8 +19,13 @@ never fails):
   allocator's peak is deterministic for a fixed step; 15% absorbs
   torch-version churn)
 
-The port's records carry no collective census and no per-phase
-attribution, so the JAX gate's bands on those sections are not here.
+* ``attribution.{phase}.flops`` — ratio band, default 1.10x (the counts
+  are deterministic for a fixed step; a trip names the phase whose cost
+  moved)
+* ``attribution.{phase}.wall_us`` — the time band
+
+The port's records carry no collective census, so the JAX gate's bands on
+that section are not here.
 
 A record with no committed baseline is reported as NEW (pass); a
 baseline whose record is missing from the run is MISSING — a pass by
@@ -45,6 +50,7 @@ class Tolerance:
     time_ratio: float = 2.5
     throughput_ratio: float = 2.5
     memory_ratio: float = 1.15
+    attribution_flops_ratio: float = 1.10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +110,24 @@ def compare_record(bench: str, current: Dict[str, Any], baseline: Dict[str, Any]
         if cur_m > limit:
             out.append(Violation(bench, name, "memory.peak_bytes", base_m, cur_m, limit))
 
+    # per-phase attribution bands: FLOPs (tight: deterministic counts) and
+    # measured wall time (the time band), naming the phase
+    cur_a = (current.get("attribution") or {}).get("phases") or {}
+    base_a = (baseline.get("attribution") or {}).get("phases") or {}
+    for ph in sorted(set(cur_a) & set(base_a)):
+        cb, bb = cur_a[ph], base_a[ph]
+        base_fl = float(bb.get("flops") or 0.0)
+        if base_fl > 0 and cb.get("flops") is not None:
+            limit = base_fl * tol.attribution_flops_ratio
+            if float(cb["flops"]) > limit:
+                out.append(Violation(bench, name, f"attribution.{ph}.flops",
+                                     base_fl, float(cb["flops"]), limit))
+        base_w = bb.get("wall_us")
+        if base_w and cb.get("wall_us") is not None:
+            limit = float(base_w) * tol.time_ratio
+            if float(cb["wall_us"]) > limit:
+                out.append(Violation(bench, name, f"attribution.{ph}.wall_us",
+                                     float(base_w), float(cb["wall_us"]), limit))
     return out
 
 
@@ -199,6 +223,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--tol-time", type=float, default=Tolerance.time_ratio)
     ap.add_argument("--tol-throughput", type=float, default=Tolerance.throughput_ratio)
     ap.add_argument("--tol-memory", type=float, default=Tolerance.memory_ratio)
+    ap.add_argument("--tol-attr-flops", type=float, default=Tolerance.attribution_flops_ratio)
     ap.add_argument("--strict-missing", action="store_true",
                     help="fail when ANY baselined bench/record was not re-measured "
                          "(full-run mode)")
@@ -208,7 +233,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     tol = Tolerance(time_ratio=args.tol_time, throughput_ratio=args.tol_throughput,
-                    memory_ratio=args.tol_memory)
+                    memory_ratio=args.tol_memory,
+                    attribution_flops_ratio=args.tol_attr_flops)
     try:
         report = compare_dirs(args.records, args.baselines, tol)
     except (FileNotFoundError, ValueError) as e:

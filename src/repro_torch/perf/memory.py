@@ -11,7 +11,7 @@ counterpart; those fields stay None.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -20,6 +20,7 @@ from repro_torch import tree as tu
 #: how the numbers were obtained
 SOURCE_CUDA_PEAK = "cuda_peak"
 SOURCE_TREE = "tree_bytes"
+SOURCE_DEVICE = "device_memory_stats"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,10 +47,30 @@ def tree_bytes(tree) -> int:
                if isinstance(x, torch.Tensor))
 
 
+def device_memory() -> Optional[List[Dict[str, Any]]]:
+    """Live and peak allocator bytes per local CUDA device, from
+    ``torch.cuda.memory_stats`` in the reference's keys, or None without a
+    card."""
+
+    if not torch.cuda.is_available():
+        return None
+    rows = []
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        rows.append({
+            "device": str(torch.device("cuda", i)),
+            "live_bytes": int(stats.get("allocated_bytes.all.current", 0)),
+            "peak_bytes": int(stats.get("allocated_bytes.all.peak", 0)),
+            "source": SOURCE_DEVICE,
+        })
+    return rows
+
+
 def memory_report(*, example_args=None, example_out=None,
                   peak_bytes: Optional[int] = None) -> Dict[str, Any]:
     """The JSON-able memory section of a PerfRecord. ``peak_bytes`` is the
-    card's measured peak; without it the section holds the trees' bytes."""
+    card's measured peak; without it the section holds the trees' bytes.
+    With a card, ``device_stats`` adds :func:`device_memory`."""
 
     per_device = MemoryStats(
         argument_bytes=tree_bytes(example_args) if example_args is not None else 0,
@@ -58,4 +79,8 @@ def memory_report(*, example_args=None, example_out=None,
         peak_bytes=None if peak_bytes is None else int(peak_bytes),
         source=SOURCE_TREE if peak_bytes is None else SOURCE_CUDA_PEAK,
     )
-    return {"per_device": per_device.as_dict(), "n_devices": 1}
+    report: Dict[str, Any] = {"per_device": per_device.as_dict(), "n_devices": 1}
+    live = device_memory()
+    if live is not None:
+        report["device_stats"] = live
+    return report

@@ -184,8 +184,12 @@ def test_cpu_tensors_take_the_plain_version():
     assert dispatch.dispatch_log()[-1] == ("flash_decode", "plain", "forced")
     with pytest.raises(ValueError, match="backend"):
         flash_attn.flash_decode(q, k, v, pos, None, backend="triton")
-    with pytest.raises(ValueError, match="no route"):
-        flash_attn.flash_decode(q.to("meta"), k.to("meta"), v.to("meta"), pos.to("meta"))
+    # a meta tensor takes the meta route: an empty output of the kernel's
+    # shape and dtype, no launch (the dry run's trace)
+    out = flash_attn.flash_decode(q.to("meta"), k.to("meta"), v.to("meta"), pos.to("meta"))
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    assert dispatch.dispatch_log()[-1] == ("flash_decode", "meta", "meta tensor")
+    assert dispatch.launches("flash_decode") == 0
 
 
 @pytest.mark.parametrize("bad,match", [

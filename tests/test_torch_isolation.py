@@ -58,6 +58,10 @@ def test_package_imports_with_jax_unavailable():
             "import repro_torch.perf.bench_data_pruning, repro_torch.perf.bench_biased_regression\n"
             "import repro_torch.obs, repro_torch.obs.report, repro_torch.obs.diff\n"
             "import repro_torch.perf.bench_obs, repro_torch.perf.obs_cost\n"
+            "import repro_torch.obs.profile, repro_torch.roofline, repro_torch.kernels.ops\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.specs, repro_torch.perf.run\n"
+            "import repro_torch.perf.bench_kernels, repro_torch.perf.bench_attention\n"
+            "import repro_torch.perf.bench_attribution, repro_torch.perf.make_roofline_table\n"
             "from repro_torch.serve import ScoreAPI, ScoreStore\n"
             "from repro_torch.models import Model, ssm\n"
             "from repro_torch.serve import prefill\n"
