@@ -13,8 +13,8 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    one nvcc per source, all at once; prints each build's seconds, the
    ``-Xptxas -v`` register, spill and shared-memory lines and, for the two
    training attention libraries, each kernel's count of tensor-core
-   instructions (HMMA or HGMMA) in ``cuobjdump -sass``: the bf16 and f16
-   forward, dq and dk/dv kernels must have some.
+   instructions (HMMA and HGMMA) in ``cuobjdump -sass``: every bf16 and f16
+   forward must hold HGMMA (wgmma), every dq and dk/dv HMMA.
 3. decode kernel: ``flash_decode`` against its plain PyTorch version on
    the card at gemma3-1b shapes (B in {1, 4, 8}, KV=1, G=4, Dh=256, T in
    {16, 128, 1024, 2048}, window on and off, softcap 0 and 50, cluster
@@ -57,8 +57,8 @@ Phases, in order, each printing its seconds; any failure exits non-zero:
    version's own rounding passes the bf16 tolerance at Dh 64; its share
    is printed, not held), the bf16 kernels' results from their own lse
    also within half an ulp (plus the f32 tolerance) of the plain version
-   in f32, and the bf16 gradients of two runs
-   bitwise equal; a second derivative through the attention and CE
+   in f32, the f16 forward likewise on the same draws in f16, and the
+   bf16 gradients of two runs bitwise equal; a second derivative through the attention and CE
    kernels raises (first order only), through their plain versions not;
    ``adam_adapt`` at the embedding's 23,440,896 elements, the stacked MLP
    weights' 28,311,552, a ragged size and qwen2-moe's expert stack at
@@ -430,11 +430,12 @@ def phase_device():
     return smi
 
 
-#: the libraries whose SASS is searched for tensor-core instructions, and
-#: the kernels in each whose every instantiation (bf16 and f16, each head
-#: dim) must hold some
-MMA_KERNELS = {"flash_attn_fwd": ("fwd_tc_kernel",),
-               "flash_attn_bwd": ("dq_tc_kernel", "dkv_tc_kernel")}
+#: the libraries whose SASS is searched for tensor-core instructions, the
+#: kernels in each whose every instantiation (bf16 and f16, each head dim)
+#: must hold some, and which: Hopper's warpgroup HGMMA (wgmma) in the
+#: forward, HMMA (mma.sync) in dq and dk/dv
+MMA_KERNELS = {"flash_attn_fwd": {"fwd_tc_kernel": "HGMMA"},
+               "flash_attn_bwd": {"dq_tc_kernel": "HMMA", "dkv_tc_kernel": "HMMA"}}
 
 
 def _cuda_tool(name):
@@ -445,8 +446,9 @@ def _cuda_tool(name):
 
 
 def _sass_mma_counts(path):
-    """{kernel: number of HMMA / HGMMA instructions} in a library's SASS
-    (``cuobjdump -sass``), the names demangled by ``cu++filt``."""
+    """{kernel: {"HMMA": n, "HGMMA": n}}, the tensor-core instructions of
+    each kernel in a library's SASS (``cuobjdump -sass``), the names
+    demangled by ``cu++filt``."""
     sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     counts, fn = {}, None
@@ -454,9 +456,11 @@ def _sass_mma_counts(path):
         text = line.strip()
         if text.startswith("Function :"):
             fn = text.split(":", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in text or "HGMMA" in text):
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for op in ("HMMA", "HGMMA"):
+                if op in text:
+                    counts[fn][op] += 1
     names = subprocess.run([_cuda_tool("cu++filt")], input="\n".join(counts), capture_output=True,
                            text=True, timeout=60, check=True).stdout.splitlines()
     return dict(zip(names, counts.values()))
@@ -483,15 +487,15 @@ def phase_build():
         if name in MMA_KERNELS:
             counts = _sass_mma_counts(path)
             for fn, n in counts.items():
-                log(f"  sass: {name}: HMMA {n}: {fn[:120]}")
-            for kernel in MMA_KERNELS[name]:
+                log(f"  sass: {name}: HMMA {n['HMMA']} HGMMA {n['HGMMA']}: {fn[:120]}")
+            for kernel, op in MMA_KERNELS[name].items():
                 tc = {fn: n for fn, n in counts.items() if f"{kernel}<" in fn}
                 for dtype in ("__nv_bfloat16", "__half"):
                     if not any(f"<{dtype}," in fn for fn in tc):
                         raise AssertionError(f"{name}: no {kernel}<{dtype}, ...> in its SASS")
                 for fn, n in tc.items():
-                    if n == 0:
-                        raise AssertionError(f"{fn}: no tensor-core instruction in its SASS")
+                    if n[op] == 0:
+                        raise AssertionError(f"{fn}: no {op} instruction in its SASS")
     log(f"build_seconds: {secs:.2f} (all sources at once)")
     return per, ptxas
 
@@ -1316,6 +1320,7 @@ def phase_train_kernel_check(dev):
     # share of the bf16 tolerance: observed, not held (a bf16 plain version
     # rounds as it goes; past 1, it cannot be the bf16 kernels' reference)
     plain16_share = {n: 0.0 for n in names}
+    f16_share = 0.0  # the f16 forward vs plain in f32, share of its half-ulp bound
     repeats = 0  # shapes whose bf16 gradients two runs gave bitwise equal
     for name, b, s, t, kv, g, dh, causal, window, softcap, padded in TRAIN_SHAPES:
         kw = dict(softcap=softcap, window=window, causal=causal)
@@ -1384,6 +1389,19 @@ def phase_train_kernel_check(dev):
                                              f"{share:.3f} of the half-ulp bound")
                     share_vs_f32[kname] = max(share_vs_f32[kname], share)
                 del out, grads, ref_out, ref_grads
+                # the f16 forward (its own instantiation) on these values
+                # in f16, against the plain forward in f32 on the same
+                q16, k16, v16 = (x.half() for x in (q, k, v))
+                out16, _ = flash_attn._fwd_cuda(q16, k16, v16, q_pos, kv_pos, **kw)
+                ref16, _ = flash_attn.flash_attention_fwd_plain(
+                    q16.float(), k16.float(), v16.float(), q_pos, kv_pos, **plain_kw)
+                share = _excess(out16, ref16, ATTN_TOL[torch.float32][0][0],
+                                torch.finfo(torch.float16).eps / 2)
+                if not (out16.dtype == torch.float16 and share <= 1.0):
+                    raise AssertionError(f"{names[0]} f16 vs plain in f32 at {name}: {share:.3f} "
+                                         f"of the half-ulp bound ({out16.dtype})")
+                f16_share = max(f16_share, share)
+                del q16, k16, v16, out16, ref16
             if not padded:
                 CHECKED["flash_attention"].add(_train_sig(q, k, causal, window, softcap))
             torch.cuda.empty_cache()
@@ -1394,6 +1412,8 @@ def phase_train_kernel_check(dev):
             f"max_err_bf16={worst[kname][torch.bfloat16]:.3e}; bf16 vs plain in f32 within "
             f"{share_vs_f32[kname]:.3f} of the half-ulp bound; the bf16 plain version vs "
             f"plain in f32 at {plain16_share[kname]:.3f} of the bf16 tolerance (not held)")
+    log(f"kernel_check: {names[0]} f16 vs plain in f32 at every shape within {f16_share:.3f} "
+        f"of the half-ulp bound")
     log(f"kernel_check: dq, dk, dv bf16 bitwise equal over two runs at {repeats} of "
         f"{len(TRAIN_SHAPES)} shapes")
 
@@ -4658,6 +4678,10 @@ def main():
         e = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}.cu", "replaces": replaces,
              "build_seconds": build_s[source]}
+        if name == flash_attn.FWD:
+            e["design"] = ("bf16/f16: wgmma (HGMMA), K and V by TMA into a 4-stage mbarrier "
+                           "ring, one producer warp, two consumer warpgroups (csrc/hopper.cuh); "
+                           "f32: the CUDA cores")
         if name == "adam_adapt":
             e["max_abs_err"] = adam_worst
         elif name in adapt_worst:

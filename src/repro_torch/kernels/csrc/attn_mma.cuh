@@ -1,11 +1,12 @@
 // Tensor-core building blocks of the 2-byte (bf16, f16) training attention
-// kernels (flash_attn_fwd.cu, flash_attn_bwd.cu): mma.sync m16n8k16 with
-// f32 accumulators, ldmatrix fragment loads, 16-byte cp.async staging with
-// zero fill, the split of an f32 operand into 2-byte terms, the test
-// that decides which (query tile, key tile) pairs a block visits, the two
-// walks over them (KeyTiles from a block of query rows, QueryTiles from a
-// block of keys), and the first walk alone (visit_kernel), which counts
-// the tiles (flash_attn_bwd.cu has the second's).
+// kernels. For dq and dk/dv (flash_attn_bwd.cu): mma.sync m16n8k16 with f32
+// accumulators, ldmatrix fragment loads, 16-byte cp.async staging with zero
+// fill. For them and the forward (flash_attn_fwd.cu, on wgmma): the split
+// of an f32 operand into 2-byte terms, the test that decides which (query
+// tile, key tile) pairs a block visits, the two walks over them (KeyTiles
+// from a block of query rows, QueryTiles from a block of keys), and the
+// first walk alone (visit_kernel), which counts the tiles
+// (flash_attn_bwd.cu has the second's).
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16 x 16 row-major, 4 registers of 2 elements: (g, 2t..2t+1),
@@ -28,7 +29,7 @@
 namespace attn {
 namespace tc {
 
-constexpr int kM = 64;    // (query, head) rows per block, 16 per warp
+constexpr int kM = 64;    // (query, head) rows of a dq or dk/dv query tile, 16 per warp
 constexpr int kPad = 8;   // elements of padding per shared-memory row
 
 // The head dim a tensor-core instantiation is built for: Dh rounded up to

@@ -9,10 +9,12 @@ Counterpart of ``src/repro/kernels/flash_attn.py``:
   ``csrc/flash_attn_fwd.cu`` (blockwise online softmax, saving ``out``
   and ``lse``) and whose backward is the two recompute kernels of
   ``csrc/flash_attn_bwd.cu`` (dq; dk and dv summed over the query group).
-  In bf16 and f16 all three run on the tensor cores and visit only the
-  tiles :func:`live_tiles` keeps (tile sizes :func:`tc_tiles`, the walk's
-  own count :func:`tc_visits`), skipping the elementwise mask on the
-  tiles :func:`full_tiles` marks; f32 runs on the CUDA cores. Like the
+  In bf16 and f16 all three run on the tensor cores (the forward on
+  Hopper's wgmma, fed by TMA through an mbarrier ring; dq and dk/dv on
+  mma.sync) and visit only the tiles :func:`live_tiles` keeps (tile
+  sizes :func:`tc_tiles`, the walk's own count :func:`tc_visits`),
+  skipping the elementwise mask on the tiles :func:`full_tiles` marks;
+  f32 runs on the CUDA cores. Like the
   JAX custom VJP it saves only ``(q, k, v, out, lse)`` and the positions.
   Its plain versions are ``flash_attention_ref``'s ops (which also give
   the lse) and the recompute of ``_bwd_tile`` in torch ops. CPU tensors
@@ -582,7 +584,7 @@ def _check_aligned(**tensors):
     for name, x in tensors.items():
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be 16-byte aligned (the kernels "
-                             "stage rows with 16-byte cp.async copies)")
+                             "read rows by TMA or 16-byte cp.async copies)")
 
 
 def _dims(q, k):

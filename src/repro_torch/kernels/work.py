@@ -57,9 +57,10 @@ def ce(rows: int, v: int, dtype: torch.dtype, backward: bool = False) -> Work:
     return Work(float(4 * rows * v), float((2 if backward else 1) * logits + 12 * rows))
 
 
-#: (query, head) rows per block of the bf16/f16 training kernels
-#: (csrc/attn_mma.cuh kM)
-_ROWS = 64
+#: (query, head) rows per block of each bf16/f16 training kernel: the
+#: forward's two consumer warpgroups (csrc/flash_attn_fwd.cu FwdTc::kRows),
+#: dq's and dk/dv's four warps (csrc/attn_mma.cuh kM)
+_ROWS = {"fwd": 128, "dq": 64, "dkv": 64}
 
 
 def _tile_dh(dh: int) -> int:
@@ -72,10 +73,10 @@ def tiles(kernel: str, g: int, dh: int):
     ``flash_attn.tc_tiles`` asks the kernels' libraries (held equal on the
     card by ``chip_smoke.py``)."""
     d = _tile_dh(dh)
-    bk = {"fwd": 64 if d <= 128 else 32,
+    bk = {"fwd": 64 if d <= 128 else 16,
           "dq": 64 if d <= 64 else 32 if d <= 128 else 16,
           "dkv": 64 if d <= 64 else 32}[kernel]
-    return _ROWS // g, bk
+    return _ROWS[kernel] // g, bk
 
 
 @functools.lru_cache(maxsize=256)

@@ -34,15 +34,17 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, flash_attn
+from repro_torch.perf.timers import graph_ms
 
 OUT_DIR = build.ROOT / "build" / "ablation"
 
 #: per kernel: its source, C entry, and the variants as (file, anchor, old,
 #: new): the first ``old`` after ``anchor`` in ``file`` becomes ``new``
-_FWD_MMA_QK = ("        M::mma(sc[2 * np], a, bb[0], bb[1]);\n"
-               "        M::mma(sc[2 * np + 1], a, bb[2], bb[3]);\n")
-_FWD_MMA_PV = ("          M::mma(o[2 * np], a[s], bb[0], bb[1]);\n"
-               "          M::mma(o[2 * np + 1], a[s], bb[2], bb[3]);\n")
+_FWD_WGMMA_QK = (
+    "      W::ss(sc_flat, hopper::desc_b128(q_addr + p * F::kRows * 128 + kk * 32, 16, 1024),\n"
+    "            hopper::desc_b128(kb + p * kBK * 128 + kk * 32, 16, 1024), p + kk > 0);\n")
+_FWD_WGMMA_PV = (
+    "      W::rs(o_flat, a[kk][s], hopper::desc_b128(vb + kk * 16 * 128, kBK * 128, 1024), 1);\n")
 _DQ_MMA_QK = ("        M::mma(sc[2 * np], aq, bk[0], bk[1]);\n"
               "        M::mma(sc[2 * np + 1], aq, bk[2], bk[3]);\n")
 _DQ_MMA_DP = ("        M::mma(dp[2 * np], ao, bv[0], bv[1]);\n"
@@ -63,15 +65,16 @@ _NO_SKIP = ("attn_mma.cuh", "struct KeyTiles",
 
 KERNELS = {
     "fwd": ("flash_attn_fwd", "flash_attn_fwd_launch", {
-        "no_qk": ("flash_attn_fwd.cu", "fwd_tc_kernel(", _FWD_MMA_QK, ""),
-        "no_pv": ("flash_attn_fwd.cu", "fwd_tc_kernel(", _FWD_MMA_PV, ""),
+        "no_qk": ("flash_attn_fwd.cu", "void fwd_tile(", _FWD_WGMMA_QK, ""),
+        "no_pv": ("flash_attn_fwd.cu", "void fwd_tile(", _FWD_WGMMA_PV, ""),
         "p_1_term": ("flash_attn_fwd.cu", "struct FwdTc",
                      "std::is_same<T, __nv_bfloat16>::value ? 3 : 2;", "1;"),
-        "no_exp": ("flash_attn_fwd.cu", "fwd_tc_kernel(", "expf(sc[n][e] - m[u])",
-                   "(sc[n][e] - m[u])"),
-        "no_mask": ("flash_attn_fwd.cu", "fwd_tc_kernel(", "    uint32_t valid = 0xffffffffu;\n",
-                    "    uint32_t valid = 0xffffffffu;\n    full = true;\n"),
+        "no_exp": ("flash_attn_fwd.cu", "void fwd_tile(", "exp2_approx(sc[n][e] - r.m[u])",
+                   "(sc[n][e] - r.m[u])"),
+        "no_mask": ("flash_attn_fwd.cu", "fwd_tc_kernel(", "      if (info & 1) {\n",
+                    "      if (true) {\n"),
         "no_skip": _NO_SKIP,
+        "one_stage": ("flash_attn_fwd.cu", "struct FwdTc", "kStages = 4;", "kStages = 1;"),
     }),
     "dq": ("flash_attn_bwd", "flash_attn_dq_launch", {
         "no_qk": ("flash_attn_bwd.cu", "dq_tc_kernel(", _DQ_MMA_QK, ""),

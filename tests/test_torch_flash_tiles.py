@@ -26,10 +26,15 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 from repro.kernels import flash_attn as jfa  # noqa: E402
 from repro_torch.kernels import flash_attn  # noqa: E402
 
-#: the kernels' blocks hold 64 (query, head) rows, so 64 // G queries, and
-#: their key tiles are 16, 32 or 64 keys (which one is the library's)
+#: dq's and dk/dv's blocks hold 64 (query, head) rows, so 64 // G queries,
+#: and their key tiles are 16, 32 or 64 keys (which one is the library's)
 ROWS = 64
 KEY_TILES = (16, 32, 64)
+#: the forward's tiles: 128 rows (two warpgroups of 64), so 128 // G
+#: queries, by 64 keys, or 16 at Dh 256
+FWD_ROWS, FWD_KEY_TILES = 128, (16, 64)
+#: each kernel's rows per block
+KERNEL_ROWS = {flash_attn.FWD: FWD_ROWS, flash_attn.DQ: ROWS, flash_attn.DKV: ROWS}
 
 
 def _valid(q_pos, kv_pos, causal, window):
@@ -103,8 +108,18 @@ CASES = [
 @pytest.mark.parametrize("bk", KEY_TILES)
 @pytest.mark.parametrize("case", CASES)
 def test_dropped_tiles_hold_no_valid_pair(case, bk):
+    _check_dropped(case, ROWS, bk)
+
+
+@pytest.mark.parametrize("bk", FWD_KEY_TILES)
+@pytest.mark.parametrize("case", CASES)
+def test_dropped_tiles_hold_no_valid_pair_at_the_forward_tile(case, bk):
+    _check_dropped(case, FWD_ROWS, bk)
+
+
+def _check_dropped(case, rows, bk):
     b, s, t, g, causal, window, q_pad, k_pad = case
-    bq = ROWS // g
+    bq = rows // g
     q_pos, kv_pos = _positions(b, s, t, q_pad=q_pad, k_pad=k_pad)
     live, pairs = _check_dropped_tiles_are_empty(q_pos, kv_pos, bq, bk, causal, window)
     if q_pad and q_pad[0][1] == 0 and q_pad[0][2] == s:  # a lane of padding only
@@ -135,9 +150,19 @@ def _closed_form(s, t, bq, bk, causal, window):
 @pytest.mark.parametrize("bk", KEY_TILES)
 @pytest.mark.parametrize("case", CASES)
 def test_full_tiles_hold_only_valid_pairs(case, bk):
+    _check_full(case, ROWS, bk)
+
+
+@pytest.mark.parametrize("bk", FWD_KEY_TILES)
+@pytest.mark.parametrize("case", CASES)
+def test_full_tiles_hold_only_valid_pairs_at_the_forward_tile(case, bk):
+    _check_full(case, FWD_ROWS, bk)
+
+
+def _check_full(case, rows, bk):
     b, s, t, g, causal, window, q_pad, k_pad = case
     q_pos, kv_pos = _positions(b, s, t, q_pad=q_pad, k_pad=k_pad)
-    full = _check_full_tiles_are_all_valid(q_pos, kv_pos, ROWS // g, bk, causal, window)
+    full = _check_full_tiles_are_all_valid(q_pos, kv_pos, rows // g, bk, causal, window)
     if not (q_pad or k_pad or t % bk):  # no padding: some tile is full
         assert bool(full.any())
 
@@ -156,17 +181,30 @@ def _closed_form_full(s, t, bq, bk, causal, window):
     return total
 
 
-@pytest.mark.parametrize("s,t,g,causal,window", [
+CLOSED_FORM_CASES = [
     (1024, 1024, 4, True, 0),
     (1024, 1024, 4, True, 512),
     (128, 128, 1, False, 0),
     (300, 333, 4, True, 128),
     (61, 500, 3, True, 100),
     (200, 200, 8, True, 5),
-])
+]
+
+
+@pytest.mark.parametrize("s,t,g,causal,window", CLOSED_FORM_CASES)
 @pytest.mark.parametrize("bk", KEY_TILES)
 def test_live_count_equals_the_closed_form(s, t, g, causal, window, bk):
-    bq = ROWS // g
+    _check_closed_form(s, t, g, causal, window, ROWS, bk)
+
+
+@pytest.mark.parametrize("s,t,g,causal,window", CLOSED_FORM_CASES)
+@pytest.mark.parametrize("bk", FWD_KEY_TILES)
+def test_live_count_equals_the_closed_form_at_the_forward_tile(s, t, g, causal, window, bk):
+    _check_closed_form(s, t, g, causal, window, FWD_ROWS, bk)
+
+
+def _check_closed_form(s, t, g, causal, window, rows, bk):
+    bq = rows // g
     q_pos, kv_pos = _positions(2, s, t)
     live = flash_attn.live_tiles(q_pos, kv_pos, bq, bk, causal=causal, window=window)
     assert int(live.sum()) == 2 * _closed_form(s, t, bq, bk, causal, window)
@@ -176,12 +214,16 @@ def test_live_count_equals_the_closed_form(s, t, g, causal, window, bk):
 
 def test_gemma_global_layer_visits_about_half_its_tiles():
     """At gemma3-1b's global layer (S = T = 1024, G 4) in 16-query by
-    32-key tiles (the forward's at Dh 256): (64 query tiles) x (32 key
-    tiles) in all, of which 1,056 per lane hold a causal pair."""
+    32-key tiles (dk/dv's at Dh 256): (64 query tiles) x (32 key tiles) in
+    all, of which 1,056 per lane hold a causal pair; in the forward's
+    32-query by 16-key tiles, 1,056 of 32 x 64."""
     q_pos, kv_pos = _positions(1, 1024, 1024)
     live = flash_attn.live_tiles(q_pos, kv_pos, 16, 32, causal=True, window=0)
     assert live.shape == (1, 64, 32)
     assert int(live.sum()) == sum(i // 2 + 1 for i in range(64)) == 1056
+    live = flash_attn.live_tiles(q_pos, kv_pos, FWD_ROWS // 4, 16, causal=True, window=0)
+    assert live.shape == (1, 32, 64)
+    assert int(live.sum()) == sum(2 * i + 2 for i in range(32)) == 1056
 
 
 @st.composite
@@ -261,7 +303,7 @@ def test_tc_tiles_follow_the_kernels(kernel):
     for dh, kv in ((8, 2), (64, 1), (128, 1), (256, 2)):
         for b, s, t, g, causal, window, q_pos, kv_pos in layouts:
             bq, bk = flash_attn.tc_tiles(kernel, g, dh)
-            assert bq == ROWS // g and bk in KEY_TILES
+            assert bq == KERNEL_ROWS[kernel] // g and bk in KEY_TILES
             live = flash_attn.live_tiles(q_pos, kv_pos, bq, bk, causal=causal, window=window)
             walk = flash_attn.tc_visits(kernel, q_pos.to(dev), kv_pos.to(dev), kv, g, dh,
                                         causal=causal, window=window)

@@ -99,9 +99,12 @@ def test_flash_attention_kernels_match_plain(dev, case, dtype):
     torch.cuda.synchronize()
     assert [dispatch.launches(n) for n in (flash_attn.FWD, flash_attn.DQ, flash_attn.DKV)] == [1, 1, 1]
     # the kernels' two passes in plain versions: the plain forward, then
-    # flash_attention_bwd_plain from its lse
-    plain = flash_attn.flash_attention_plain_vjp(q, k, v, q_pos.to(torch.int32),
-                                                 kv_pos.to(torch.int32), cot, **kw)
+    # flash_attention_bwd_plain from its lse, in f32 on the same inputs (a
+    # 2-byte plain version rounds as it goes, up to an ulp of the output
+    # apart from the f32 result that the kernels round once)
+    plain = flash_attn.flash_attention_plain_vjp(*(x.float() for x in (q, k, v)),
+                                                 q_pos.to(torch.int32), kv_pos.to(torch.int32),
+                                                 cot.float(), **kw)
     for name, a, b, tol in zip(("out", "dq", "dk", "dv"), got, plain,
                                (fwd_tol, grad_tol, grad_tol, grad_tol)):
         assert a.dtype == dtype and a.shape == b.shape
@@ -168,8 +171,9 @@ def test_flash_attention_kernel_lse_and_masked_rows(dev):
 
 
 def test_flash_attention_wrapper_rejects_a_misaligned_view(dev):
-    """The kernels stage rows with 16-byte cp.async copies: a contiguous
-    view 2 bytes past an aligned address is refused, in both passes."""
+    """The kernels read rows by TMA (the forward) or 16-byte cp.async
+    copies (dq, dk/dv): a contiguous view 2 bytes past an aligned address
+    is refused, in both passes."""
     B, S, H, Dh = 1, 4, 2, 16
     base = torch.zeros(B * S * H * Dh + 8, device=dev, dtype=torch.bfloat16)
     bad = base[1:1 + B * S * H * Dh].view(B, S, H, Dh)
